@@ -9,7 +9,12 @@ Phases; each raises on failure, so the script exits non-zero:
 
 1. device: a CUDA card is required (no CPU fallback); print its name and
    power limit as nvidia-smi reports them.
-2. build: compile ops/csrc/sixdof_rk4.cu with nvcc for sm_90a.
+2. build: compile ops/csrc/sixdof_rk4.cu and ops/csrc/pairwise_gravity.cu
+   with nvcc for sm_90a, one nvcc per source, started together; print
+   ptxas's report (registers, spills) of each.
+
+The batched 6-dof RK4 path and its kernel (sixdof_rk4):
+
 3. kernel vs plain PyTorch version on the card, f32 and f64, at 1024
    bodies x 50 ticks and at the main path's 8192 bodies x 240 ticks:
    max |Δ| / max |ref| per channel group (quaternion, position, angular
@@ -32,47 +37,60 @@ Phases; each raises on failure, so the script exits non-zero:
 6. device trace with ``torch.profiler``: device ops per tick, device busy
    time and idle share of the ECS loop (8192 bodies, f64, 20 ticks) and
    of one kernel launch at 131072 bodies x 4000 ticks, f32 and f64.
-7. a JSON line of the kernels, then the last line
-   ``{"ok": true, "device": {...}}``.
+
+The n-body path and its kernel (pairwise_gravity):
+
+7. kernel vs plain PyTorch version on the card, f32 and f64, at 300 and
+   16384 bodies, on the ``build_nbody(N, seed=2)`` positions and masses
+   and on a unit cloud with eps = 0.1 and two coincident bodies:
+   max |Δ| / max |ref| ≤ 1e-4 in f32 and ≤ 1e-12 in f64.
+8. the main path at full width: ``build_nbody(16384, seed=2)`` under the
+   f32 policy, ``World.build(build_system(60.0, use_kernel=True),
+   device="cuda")`` and ``Exec.run(100)``.  The kernel's launch count is
+   set to 0 just before the run and must read 100 after it (one launch per
+   semi-implicit tick); the state must be finite with tick == 100.  The
+   momentum drift is printed, and the state must agree with the same run
+   under the f64 policy to ≤ 1e-4 per channel group.
+9. the edge-fold path (``GraphQuery[TotalEdge]``): ``build_nbody(4096)``,
+   f64, ``use_kernel=False``, ``Exec.run(50)``: the kernel must launch 0
+   times, every fold must take the dense path with no probe, and the state
+   must agree with the kernel path on the same world to ≤ 1e-10 per channel
+   group; then its device trace over 5 ticks.
+10. the fold as ``examples/n-body/main.py`` writes it (no additive hint)
+    on ``build_nbody(128)``, f64, ``Exec.run(10)``: the additive probe must
+    run once and reject it, every tick must fold sequentially, the kernel
+    must launch 0 times, and the state must agree with the kernel path on
+    the same world to ≤ 1e-10.
+11. kernel and plain version timed with CUDA events at 16384 bodies, f32
+    and f64: µs per call and pairs/s.
+12. device trace of the n-body kernel path (16384 bodies, f32, 20 ticks),
+    then a cProfile of the same run: where the host's time per tick goes.
+
+13. a JSON line of the kernels, then the last line
+    ``{"ok": true, "device": {...}}``.
 """
 
-from __future__ import annotations
-
+import cProfile
 import json
+import os
+import pstats
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 DT = 1.0 / 120.0
 F32_TOL, F64_TOL, ECS_F64_TOL = 1e-4, 1e-12, 1e-10
-GROUPS = ("quaternion", "position", "angular_vel", "linear_vel")
+SIXDOF_STATE = ("world_pos", "world_vel")
 MAIN_BODIES, MAIN_TICKS = 8192, 240
 BENCH_BODIES, BENCH_TICKS, PLAIN_TICKS = 131072, 4000, 20
 TRACE_TICKS = 20
-
-
-def _split(pos, vel):
-    return pos[:, :4], pos[:, 4:], vel[:, :3], vel[:, 3:]
-
-
-def _compare(label, ours, ref, tol):
-    """Per-group max |Δ| / max |ref| of two (pos, vel) pairs; raises past
-    ``tol``.  Returns (worst relative, worst absolute) error."""
-    rels, worst_abs = {}, 0.0
-    for g, o, r in zip(GROUPS, _split(*ours), _split(*ref)):
-        d = (o.double() - r.double()).abs().max().item()
-        rels[g] = d / r.double().abs().max().item()
-        worst_abs = max(worst_abs, d)
-    worst = max(rels.values())
-    print(f"{label}: max|Δ|/max|ref| {worst:.3e} (tol {tol:g}), max|Δ| "
-          f"{worst_abs:.3e}, by group "
-          + ", ".join(f"{g} {v:.3e}" for g, v in rels.items()))
-    if not worst <= tol:
-        raise AssertionError(f"{label}: {worst:.3e} exceeds {tol:g}")
-    return worst, worst_abs
+NBODY_BODIES, NBODY_TICKS, NBODY_DT = 16384, 100, 60.0
+EDGE_BODIES, EDGE_TICKS, EDGE_TRACE_TICKS = 4096, 50, 5
+PROBED_BODIES, PROBED_TICKS = 128, 10
 
 
 def _time_ms(fn, reps=3):
@@ -109,33 +127,74 @@ def _device_trace(fn):
     return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, wall_ms
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on a GPU",
-              file=sys.stderr)
-        return 1
-
-    import elodin_tpu_torch as el
-    from elodin_tpu_torch import interop
-    from elodin_tpu_torch.models import batched_sixdof_init, build_batched_sixdof
-    from elodin_tpu_torch.ops import _build
-    from elodin_tpu_torch.ops import sixdof_kernel as sk
-
-    # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    kind = torch.cuda.get_device_name(0)
-    print(f"gpu: {smi}")
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}, devices {torch.cuda.device_count()}")
-
-    # 2. build
+def _host_profile(label, fn, ticks, top=10):
+    """cProfile of one call of fn(), a run of ``ticks`` ticks: its wall per
+    tick, then the ``top`` functions by own time and the port's ``top``
+    functions by cumulative time, each per tick.  cProfile slows the
+    Python side, so its times are upper bounds."""
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
     t0 = time.perf_counter()
-    sk.build()
-    print(f"build: sixdof_rk4 in {time.perf_counter() - t0:.2f} s")
-    print(_build.build_log("sixdof_rk4").strip())
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = pstats.Stats(prof).stats.items()
+    print(f"{label}: wall under cProfile {wall_ms / ticks:.4g} ms/tick")
+
+    def show(title, picked):
+        print(f"  {title}:")
+        for (path, line, func), (_, calls, own, cum, _) in picked[:top]:
+            print(f"    {os.path.basename(path)}:{line}({func}) calls/tick "
+                  f"{calls / ticks:.4g}, own {own * 1e3 / ticks:.4g} ms/tick, "
+                  f"cumulative {cum * 1e3 / ticks:.4g} ms/tick")
+
+    show("by own time", sorted(rows, key=lambda r: -r[1][2]))
+    show("the port's functions by cumulative time",
+         sorted((r for r in rows if "elodin_tpu_torch" in r[0][0]),
+                key=lambda r: -r[1][3]))
+
+
+def _rel_groups(ours, ref):
+    """(max |Δ| / max |ref|, max |Δ|) per channel group of a (N, 7)
+    transform or a (N, 6) motion/force column, each group against its own
+    scale (an all-zero group by max |Δ| alone)."""
+    groups = {7: (("quaternion", slice(0, 4)), ("translation", slice(4, 7))),
+              6: (("angular", slice(0, 3)), ("linear", slice(3, 6)))}[ref.shape[-1]]
+    out = {}
+    for name, idx in groups:
+        o, r = ours[:, idx].double(), ref[:, idx].double()
+        d, scale = (o - r).abs().max().item(), r.abs().max().item()
+        out[name] = (d / scale if scale > 0.0 else d, d)
+    return out
+
+
+def _compare(label, ours, ref, names, tol):
+    """``_rel_groups`` of each named column of two dicts of columns; raises
+    past ``tol``.  Returns (worst relative, worst absolute) error."""
+    worst, worst_abs, parts = 0.0, 0.0, []
+    for name in names:
+        for g, (rel, d) in _rel_groups(ours[name], ref[name]).items():
+            worst, worst_abs = max(worst, rel), max(worst_abs, d)
+            parts.append(f"{name}.{g} {rel:.3e}")
+    print(f"{label}: max|Δ|/max|ref| {worst:.3e} (tol {tol:g}), max|Δ| "
+          f"{worst_abs:.3e}, by group " + ", ".join(parts))
+    if not worst <= tol:
+        raise AssertionError(f"{label}: {worst:.3e} exceeds {tol:g}")
+    return worst, worst_abs
+
+
+def _state(pos_vel):
+    """A (world_pos, world_vel) pair as a dict of columns."""
+    return dict(zip(SIXDOF_STATE, pos_vel))
+
+
+def _sixdof(el, interop):
+    """Phases 3-6: the batched 6-dof RK4 path and its kernel; returns the
+    kernel's entry of the kernels line."""
+    from elodin_tpu_torch.models import batched_sixdof_init, build_batched_sixdof
+    from elodin_tpu_torch.ops import sixdof_kernel as sk
 
     # 3. kernel vs plain version
     errs = {}
@@ -148,7 +207,7 @@ def main() -> int:
             torch.cuda.synchronize()
             errs[n, dtype] = _compare(
                 f"kernel vs plain, {n} bodies x {ticks} ticks, {dtype}",
-                ours, ref, tol)
+                _state(ours), _state(ref), SIXDOF_STATE, tol)
 
     # 4. main path at full width: the ECS tick loop, then the whole-rollout
     # entry point from the same initial columns
@@ -185,11 +244,10 @@ def main() -> int:
     for name in ("world_pos", "world_vel", "world_accel", "force"):
         if not torch.isfinite(exec_.cols[name]).all():
             raise AssertionError(f"{name} is not finite after the run")
-    ecs = (exec_.cols["world_pos"], exec_.cols["world_vel"])
     _compare(f"ECS f64 vs kernel f64, {MAIN_BODIES} bodies x {MAIN_TICKS} ticks",
-             k64, ecs, ECS_F64_TOL)
+             _state(k64), exec_.cols, SIXDOF_STATE, ECS_F64_TOL)
     _compare(f"ECS f64 vs kernel f32, {MAIN_BODIES} bodies x {MAIN_TICKS} ticks",
-             k32, ecs, F32_TOL)
+             _state(k32), exec_.cols, SIXDOF_STATE, F32_TOL)
     ecs_rate = MAIN_BODIES * MAIN_TICKS / (t2 - t1)
     print(f"ECS eager loop (f64, {MAIN_BODIES} bodies, telemetry every "
           f"{exec_.ticks_per_telemetry} ticks): build {t1 - t0:.3f} s, "
@@ -232,29 +290,263 @@ def main() -> int:
               f"{BENCH_TICKS} ticks, one call): {ops} device ops, busy "
               f"{busy:.4g} ms, wall {wall:.4g} ms, idle share {1 - busy / wall:.2%}")
 
-    if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
-           for m in sys.modules):
-        raise AssertionError("the port's run imported JAX or the JAX package")
-
-    # 7. results
-    f32_abs = errs[MAIN_BODIES, torch.float32][1]
-    f64_abs = errs[MAIN_BODIES, torch.float64][1]
-    print(json.dumps({"kernels": [{
+    return {
         "name": "sixdof_rk4",
         "route": "cuda",
         "source": "elodin_tpu_torch/ops/csrc/sixdof_rk4.cu",
         "replaces": "elodin_tpu/ops/sixdof_kernel.py:179",
         "launches": main_launches,
-        "max_abs_err": f32_abs,
+        "max_abs_err": errs[MAIN_BODIES, torch.float32][1],
         "ms": timing[BENCH_BODIES, torch.float32][0],
         "plain_ms": timing[BENCH_BODIES, torch.float32][1],
         "units": (f"max_abs_err: float32 vs plain at {MAIN_BODIES} bodies x "
                   f"{MAIN_TICKS} ticks; ms: per tick at {BENCH_BODIES} "
                   "bodies, float32"),
-        "float64": {"max_abs_err": f64_abs,
+        "float64": {"max_abs_err": errs[MAIN_BODIES, torch.float64][1],
                     "ms": timing[BENCH_BODIES, torch.float64][0],
                     "plain_ms": timing[BENCH_BODIES, torch.float64][1]},
-    }]}))
+    }
+
+
+def _nbody_exec(el, policy, n, use_kernel, telemetry_rate=None):
+    """An n-body Exec on the card: ``build_nbody(n, seed=2)`` under
+    ``policy``, built through ``World.build``."""
+    from elodin_tpu_torch.models import build_nbody, build_nbody_system
+
+    el.set_float_policy(policy)
+    world = build_nbody(n, seed=2)
+    return world.build(build_nbody_system(NBODY_DT, use_kernel=use_kernel),
+                       device="cuda", simulation_rate=1.0 / NBODY_DT,
+                       telemetry_rate=telemetry_rate)
+
+
+def _run_timed(exec_, ticks):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exec_.run(ticks)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _nbody(el, interop):
+    """Phases 7-12: the n-body path and its kernel; returns the kernel's
+    entry of the kernels line."""
+    from elodin_tpu_torch.entity import TotalEdge
+    from elodin_tpu_torch.models import build_nbody
+    from elodin_tpu_torch.models.nbody import G
+    from elodin_tpu_torch.ops import pairwise as pw
+    from elodin_tpu_torch.system import TOTAL_FOLDS, GraphQuery, Query, system
+
+    state = ("world_pos", "world_vel", "world_accel")
+
+    # 7. kernel vs plain version
+    def inputs(n, kind, dtype):
+        if kind == "nbody":
+            _, cols = build_nbody(n, seed=2).snapshot()
+            pos, mass, g, eps = cols["world_pos"][:, 4:], cols["inertia"][:, 6], G, 0.0
+        else:  # unit cloud, two coincident bodies
+            rng = torch.Generator().manual_seed(n)
+            pos = torch.randn(n, 3, generator=rng, dtype=torch.float64) * 10
+            pos[7] = pos[3]
+            mass, g, eps = torch.rand(n, generator=rng, dtype=torch.float64) + 1, 1.0, 0.1
+        return (torch.as_tensor(pos, device="cuda", dtype=dtype).contiguous(),
+                torch.as_tensor(mass, device="cuda", dtype=dtype).contiguous(), g, eps)
+
+    errs = {}
+    for n in (300, NBODY_BODIES):
+        for kind in ("nbody", "cloud"):
+            for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+                pos, mass, g, eps = inputs(n, kind, dtype)
+                ours = pw.pairwise_gravity(pos, mass, g=g, eps=eps)
+                ref = pw.pairwise_gravity_reference(pos, mass, g=g, eps=eps)
+                torch.cuda.synchronize()
+                d = (ours.double() - ref.double()).abs().max().item()
+                rel = d / ref.double().abs().max().item()
+                errs[n, kind, dtype] = d
+                print(f"pairwise kernel vs plain, {kind}, {n} bodies, {dtype}, "
+                      f"eps {eps}: max|Δ|/max|ref| {rel:.3e} (tol {tol:g}), "
+                      f"max|Δ| {d:.3e}")
+                if not (torch.isfinite(ours).all() and rel <= tol):
+                    raise AssertionError(f"pairwise kernel vs plain {n} {kind} {dtype}: {rel:.3e}")
+
+    # 8. main path at full width: World.build -> Exec.run, f32, then f64
+    runs = {}
+    for policy in ("f32", "f64"):
+        exec_ = _nbody_exec(el, policy, NBODY_BODIES, True,
+                            telemetry_rate=1.0 / (10 * NBODY_DT))
+        mass = exec_.cols["inertia"][:, 6].double()
+        p0 = (mass[:, None] * exec_.cols["world_vel"][:, 3:].double()).sum(0)
+        pw.LAUNCHES = 0
+        wall = _run_timed(exec_, NBODY_TICKS)
+        launches = pw.LAUNCHES
+        print(f"n-body kernel path ({policy}, {NBODY_BODIES} bodies, "
+              f"Exec.run({NBODY_TICKS}), telemetry every "
+              f"{exec_.ticks_per_telemetry} ticks): {launches} launches of "
+              f"pairwise_gravity, {wall:.4f} s, "
+              f"{NBODY_BODIES * NBODY_TICKS / wall:.4g} entity-steps/s, "
+              f"{NBODY_BODIES ** 2 * NBODY_TICKS / wall:.4g} pairs/s")
+        if launches != NBODY_TICKS:
+            raise AssertionError(f"Exec.run({NBODY_TICKS}) launched the kernel {launches} times")
+        final = interop.columns_to_numpy(exec_.cols, exec_.meta)
+        if int(final["tick"][0]) != NBODY_TICKS or exec_.tick() != NBODY_TICKS:
+            raise AssertionError(f"tick {final['tick'][0]} / {exec_.tick()} != {NBODY_TICKS}")
+        for name in state + ("force",):
+            if not torch.isfinite(exec_.cols[name]).all():
+                raise AssertionError(f"{name} is not finite after the run")
+        vel = exec_.cols["world_vel"][:, 3:].double()
+        drift = ((mass[:, None] * vel).sum(0) - p0).abs().max().item() / (
+            (mass[:, None] * vel).abs().sum().item())
+        print(f"n-body momentum drift ({policy}): {drift:.4g} (max |Δp| / Σ|m v|)")
+        runs[policy] = (exec_, launches, wall)
+    nb32 = runs["f32"][0]
+    _compare(f"n-body kernel path f32 vs f64, {NBODY_BODIES} bodies x {NBODY_TICKS} ticks",
+             nb32.cols, runs["f64"][0].cols, state, F32_TOL)
+
+    # 9. the edge-fold path against the kernel path on the same world, f64
+    edge = _nbody_exec(el, "f64", EDGE_BODIES, False)
+    kern = _nbody_exec(el, "f64", EDGE_BODIES, True)
+    pw.LAUNCHES = 0
+    TOTAL_FOLDS.update(dict.fromkeys(TOTAL_FOLDS, 0))
+    edge_wall = _run_timed(edge, EDGE_TICKS)
+    edge_launches, folds = pw.LAUNCHES, dict(TOTAL_FOLDS)
+    kern_wall = _run_timed(kern, EDGE_TICKS)
+    print(f"n-body edge-fold path (f64, {EDGE_BODIES} bodies, Exec.run({EDGE_TICKS})): "
+          f"{edge_launches} launches of pairwise_gravity, folds {folds}, "
+          f"{edge_wall:.4f} s, {EDGE_BODIES * EDGE_TICKS / edge_wall:.4g} entity-steps/s; "
+          f"kernel path on the same world {kern_wall:.4f} s, "
+          f"{EDGE_BODIES * EDGE_TICKS / kern_wall:.4g} entity-steps/s")
+    if edge_launches != 0:
+        raise AssertionError(f"the edge-fold path launched the kernel {edge_launches} times")
+    if folds != {"dense": EDGE_TICKS, "sequential": 0, "probes": 0}:
+        raise AssertionError(f"edge folds took {folds}, not the dense path every tick")
+    if edge.tick() != EDGE_TICKS:
+        raise AssertionError(f"edge-fold tick {edge.tick()} != {EDGE_TICKS}")
+    _compare(f"n-body edge-fold vs kernel path, f64, {EDGE_BODIES} bodies x "
+             f"{EDGE_TICKS} ticks", edge.cols, kern.cols, state, ECS_F64_TOL)
+    ops, busy, wall = _device_trace(lambda: edge.run(EDGE_TRACE_TICKS))
+    print(f"device trace, n-body edge-fold path (f64, {EDGE_BODIES} bodies, "
+          f"run({EDGE_TRACE_TICKS})): {ops / EDGE_TRACE_TICKS:.1f} device ops/tick, "
+          f"device busy {busy / EDGE_TRACE_TICKS:.4g} ms/tick, wall "
+          f"{wall / EDGE_TRACE_TICKS:.4g} ms/tick, idle share {1 - busy / wall:.2%}")
+
+    # 10. the example's form of the fold (examples/n-body/main.py, no
+    # additive hint): the probe runs once and rejects it (it drops the
+    # carry's torque), so every tick folds sequentially
+    @system
+    def probed_gravity(graph: GraphQuery[TotalEdge],
+                       query: Query[el.WorldPos, el.Inertia]) -> Query[el.Force]:
+        def gravity_fn(force, a_pos, a_inertia, b_pos, b_inertia):
+            r = a_pos.linear() - b_pos.linear()
+            norm = torch.linalg.norm(r)
+            f = (G * a_inertia.mass()) * ((b_inertia.mass() / norm**3) * r)
+            return el.Force(linear=force.force() - f)
+
+        return graph.edge_fold(query, query, el.Force, el.Force(), gravity_fn)
+
+    el.set_float_policy("f64")
+    probed = build_nbody(PROBED_BODIES, seed=2).build(
+        el.six_dof(time_step=NBODY_DT, sys=probed_gravity,
+                   integrator=el.Integrator.SemiImplicit),
+        device="cuda", simulation_rate=1.0 / NBODY_DT)
+    kern = _nbody_exec(el, "f64", PROBED_BODIES, True)
+    pw.LAUNCHES = 0
+    TOTAL_FOLDS.update(dict.fromkeys(TOTAL_FOLDS, 0))
+    probed_wall = _run_timed(probed, PROBED_TICKS)
+    probed_launches, folds = pw.LAUNCHES, dict(TOTAL_FOLDS)
+    kern_wall = _run_timed(kern, PROBED_TICKS)
+    print(f"n-body probed edge fold, the example's form (f64, {PROBED_BODIES} bodies, "
+          f"Exec.run({PROBED_TICKS})): {probed_launches} launches of pairwise_gravity, "
+          f"folds {folds}, {probed_wall:.4f} s, "
+          f"{PROBED_BODIES * PROBED_TICKS / probed_wall:.4g} entity-steps/s; kernel "
+          f"path on the same world {kern_wall:.4f} s, "
+          f"{PROBED_BODIES * PROBED_TICKS / kern_wall:.4g} entity-steps/s")
+    if probed_launches != 0:
+        raise AssertionError(f"the probed fold launched the kernel {probed_launches} times")
+    if folds != {"dense": 0, "sequential": PROBED_TICKS, "probes": 1}:
+        raise AssertionError(f"probed folds took {folds}, not one probe and the "
+                             "sequential fold every tick")
+    _compare(f"n-body probed edge fold vs kernel path, f64, {PROBED_BODIES} bodies x "
+             f"{PROBED_TICKS} ticks", probed.cols, kern.cols, state, ECS_F64_TOL)
+
+    # 11. kernel and plain version timed at the main path's width
+    timing = {}
+    for dtype in (torch.float32, torch.float64):
+        pos, mass, g, eps = inputs(NBODY_BODIES, "nbody", dtype)
+        k_min, k_med = _time_ms(lambda: pw.pairwise_gravity(pos, mass, g=g))
+        p_min, p_med = _time_ms(lambda: pw.pairwise_gravity_reference(pos, mass, g=g))
+        timing[dtype] = (k_min, p_min)
+        pairs = NBODY_BODIES ** 2
+        print(f"pairwise_gravity, {NBODY_BODIES} bodies, {dtype}: kernel min "
+              f"{k_min * 1e3:.4g} us median {k_med * 1e3:.4g} us, "
+              f"{pairs / (k_min * 1e-3):.4g} pairs/s; plain min {p_min * 1e3:.4g} us "
+              f"median {p_med * 1e3:.4g} us, {pairs / (p_min * 1e-3):.4g} pairs/s; "
+              f"kernel/plain speedup {p_min / k_min:.4g}x")
+
+    # 12. device trace of the kernel path, then where its host time goes
+    ops, busy, wall = _device_trace(lambda: nb32.run(TRACE_TICKS))
+    print(f"device trace, n-body kernel path (f32, {NBODY_BODIES} bodies, "
+          f"run({TRACE_TICKS}), telemetry every {nb32.ticks_per_telemetry} ticks): "
+          f"{ops / TRACE_TICKS:.1f} device ops/tick, device busy "
+          f"{busy / TRACE_TICKS:.4g} ms/tick, wall {wall / TRACE_TICKS:.4g} ms/tick, "
+          f"idle share {1 - busy / wall:.2%}")
+    _host_profile(f"host profile, n-body kernel path (f32, {NBODY_BODIES} bodies, "
+                  f"run({TRACE_TICKS}))", lambda: nb32.run(TRACE_TICKS), TRACE_TICKS)
+
+    return {
+        "name": "pairwise_gravity",
+        "route": "cuda",
+        "source": "elodin_tpu_torch/ops/csrc/pairwise_gravity.cu",
+        "replaces": "elodin_tpu/ops/pairwise.py:50",
+        "launches": runs["f32"][1],
+        "max_abs_err": errs[NBODY_BODIES, "nbody", torch.float32],
+        "ms": timing[torch.float32][0],
+        "plain_ms": timing[torch.float32][1],
+        "units": (f"max_abs_err: float32 vs plain, m/s^2, build_nbody({NBODY_BODIES}); "
+                  f"ms: per call at {NBODY_BODIES} bodies, float32; launches: "
+                  f"Exec.run({NBODY_TICKS}) of the f32 main path"),
+        "float64": {"max_abs_err": errs[NBODY_BODIES, "nbody", torch.float64],
+                    "ms": timing[torch.float64][0],
+                    "plain_ms": timing[torch.float64][1]},
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 1
+
+    import elodin_tpu_torch as el
+    from elodin_tpu_torch import interop
+    from elodin_tpu_torch.ops import _build, pairwise, sixdof_kernel
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    kind = torch.cuda.get_device_name(0)
+    print(f"gpu: {smi}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}, devices {torch.cuda.device_count()}")
+
+    # 2. build: one nvcc per source, started together
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor() as pool:
+        for job in [pool.submit(m.build) for m in (sixdof_kernel, pairwise)]:
+            job.result()
+    print(f"build: sixdof_rk4 and pairwise_gravity in {time.perf_counter() - t0:.2f} s")
+    for name in ("sixdof_rk4", "pairwise_gravity"):
+        print(_build.build_log(name).strip())
+
+    kernels = [_sixdof(el, interop), _nbody(el, interop)]
+
+    if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
+           for m in sys.modules):
+        raise AssertionError("the port's run imported JAX or the JAX package")
+
+    # 13. results
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

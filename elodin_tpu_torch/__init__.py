@@ -1,9 +1,11 @@
 """elodin_tpu_torch: the PyTorch and CUDA port of ``elodin_tpu``.
 
-The same ``World`` / ``Body`` / ``six_dof`` / ``Exec`` surface, with
-component columns held as torch tensors on one device.  The batched 6-dof
-RK4 rollout has a hand-written CUDA kernel (``ops.sixdof_kernel``).  The
-package imports torch and numpy, never JAX.
+The same ``World`` / ``Body`` / ``@system`` / ``Query`` / ``GraphQuery`` /
+``six_dof`` / ``Exec`` surface, with component columns held as torch
+tensors on one device.  The batched 6-dof RK4 rollout
+(``ops.sixdof_kernel``) and all-pairs gravity (``ops.pairwise``) have
+hand-written CUDA kernels.  The package imports torch and numpy, never
+JAX.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from .component import (  # noqa: F401
     ComponentType,
     PrimitiveType,
 )
-from .entity import Archetype, C, Edge, EntityId  # noqa: F401
+from .entity import Archetype, C, Edge, EntityId, RevEdge, TotalEdge  # noqa: F401
 from .execimpl import Exec
 from .six_dof import Integrator, six_dof  # noqa: F401
 from .spatial import (  # noqa: F401
@@ -29,7 +31,16 @@ from .spatial import (  # noqa: F401
     SpatialMotion,
     SpatialTransform,
 )
-from .system import LambdaSystem, Pipe, System, SystemBuilder  # noqa: F401
+from .system import (  # noqa: F401
+    FnSystem,
+    GraphQuery,
+    LambdaSystem,
+    Pipe,
+    Query,
+    System,
+    SystemBuilder,
+    system,
+)
 from .world import DEFAULT_TIME_STEP, WorldBuilder  # noqa: F401
 
 __version__ = "0.1.0"

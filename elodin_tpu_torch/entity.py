@@ -74,6 +74,14 @@ Edge.metadata = Component("edge", ComponentType.Edge)
 Edge.__metadata__ = (Edge.metadata,)
 
 
+class RevEdge:
+    """Marker: traverse the edge component reversed."""
+
+
+class TotalEdge:
+    """Marker: a complete digraph over all entities."""
+
+
 class Archetype(typing.Protocol):
     """Bundle of components spawned together."""
 

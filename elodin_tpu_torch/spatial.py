@@ -1,5 +1,7 @@
 """Spatial algebra on torch tensors, batched over leading axes
-(counterpart of ``elodin_tpu/spatial.py``, the part the six-dof path uses).
+(counterpart of ``elodin_tpu/spatial.py``: the six-dof math and the
+spatial value types with their methods; ``Quaternion`` and MRP are not
+ported yet).
 
 Array layouts (trailing axis; any number of leading batch axes), the same
 as the JAX package's:
@@ -18,6 +20,7 @@ round-off.
 from __future__ import annotations
 
 import torch
+import torch.utils._pytree as pytree
 
 from . import _config
 
@@ -25,11 +28,26 @@ Tensor = torch.Tensor
 
 
 def _as_f(x, device=None) -> Tensor:
+    """``x`` at the policy's float dtype; a tensor stays on its device unless
+    ``device`` is given (``Tensor.to`` rather than ``as_tensor``, so this
+    also runs under ``torch.func.vmap``)."""
+    if isinstance(x, Tensor):
+        return x.to(device=device, dtype=_config.default_float())
     return torch.as_tensor(x, dtype=_config.default_float(), device=device)
 
 
 def _zeros3(device=None) -> Tensor:
     return torch.zeros(3, dtype=_config.default_float(), device=device)
+
+
+def _device_of(*parts):
+    """The device of the first given part that is a tensor; None (the CPU)
+    when no part is a tensor.  The constructors build their default parts
+    there, so a value built from device tensors stays on the device."""
+    for p in parts:
+        if isinstance(p, Tensor):
+            return p.device
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -54,6 +72,22 @@ def quat_norm_sq(q: Tensor) -> Tensor:
 
 def quat_normalize(q: Tensor) -> Tensor:
     return q * torch.rsqrt(torch.sum(q * q, dim=-1, keepdim=True))
+
+
+def quat_conj(q: Tensor) -> Tensor:
+    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
+
+
+def _quat_sandwich(q: Tensor, v: Tensor) -> Tensor:
+    """(q * (v,0) * conj(q)).xyz: rotation without the |q|^2 division."""
+    vq = torch.cat([v, torch.zeros_like(v[..., :1])], dim=-1)
+    return quat_mul(quat_mul(q, vq), quat_conj(q))[..., :3]
+
+
+def quat_rotate(q: Tensor, v: Tensor) -> Tensor:
+    """Rotate 3-vector(s): (q (v,0) q̄) / |q|^2, the general form that also
+    holds for a quaternion that is not unit."""
+    return _quat_sandwich(q, v) * (1.0 / quat_norm_sq(q))
 
 
 def stf_add_motion(transform: Tensor, motion: Tensor) -> Tensor:
@@ -122,14 +156,27 @@ def _concat_bcast(a: Tensor, b: Tensor) -> Tensor:
 
 
 class _SpatialBase:
-    """``inner`` is the raw tensor."""
+    """``inner`` is the raw tensor.  Each subclass is a pytree node whose one
+    leaf is ``inner``, so ``torch.func.vmap`` and the edge fold's carry
+    flatten it as ``jax.tree_util`` does in the JAX package."""
 
     __slots__ = ("inner",)
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        pytree.register_pytree_node(cls, cls._flatten, cls._unflatten)
+
+    def _flatten(self):
+        return [self.inner], None
+
+    @classmethod
+    def _unflatten(cls, children, _context):
+        return cls.from_array(list(children)[0])
 
     @classmethod
     def from_array(cls, arr):
         obj = object.__new__(cls)
-        obj.inner = torch.as_tensor(arr)
+        obj.inner = arr if isinstance(arr, Tensor) else torch.as_tensor(arr)
         return obj
 
     def __repr__(self):
@@ -137,7 +184,8 @@ class _SpatialBase:
 
 
 class SpatialTransform(_SpatialBase):
-    """[qx,qy,qz,qw, x,y,z] rigid transform."""
+    """[qx,qy,qz,qw, x,y,z] rigid transform.  ``angular()`` waits for the
+    port of ``Quaternion``, which it returns in the JAX package."""
 
     def __init__(self, arr=None, angular=None, linear=None):
         if arr is not None:
@@ -145,21 +193,55 @@ class SpatialTransform(_SpatialBase):
                 raise ValueError("Cannot specify both array and linear/angular")
             self.inner = _as_f(arr)
             return
-        if angular is None:
-            q = _as_f([0.0, 0.0, 0.0, 1.0])
-        else:
-            q = _as_f(angular)
-        lin = _zeros3(q.device) if linear is None else _as_f(linear, q.device)
+        device = _device_of(angular, linear)
+        q = (_as_f([0.0, 0.0, 0.0, 1.0], device) if angular is None
+             else _as_f(angular, device))
+        lin = _zeros3(device) if linear is None else _as_f(linear, device)
         self.inner = _concat_bcast(q, lin)
+
+    def linear(self) -> Tensor:
+        return self.inner[..., 4:]
+
+    def __add__(self, rhs):
+        if isinstance(rhs, SpatialTransform):
+            return SpatialTransform.from_array(self.inner + rhs.inner)
+        if isinstance(rhs, SpatialMotion):
+            return SpatialTransform.from_array(stf_add_motion(self.inner, rhs.inner))
+        raise TypeError("Unsupported type for addition")
+
+    def __mul__(self, rhs: "SpatialTransform") -> "SpatialTransform":
+        """Transform composition."""
+        q = self.inner[..., :4]
+        angular = quat_mul(q, rhs.inner[..., :4])
+        linear = self.inner[..., 4:] + quat_rotate(q, rhs.inner[..., 4:])
+        return SpatialTransform.from_array(torch.cat([angular, linear], dim=-1))
 
 
 class SpatialMotion(_SpatialBase):
     """[wx,wy,wz, vx,vy,vz] velocity twist."""
 
     def __init__(self, angular=None, linear=None):
-        ang = _zeros3() if angular is None else _as_f(angular)
-        lin = _zeros3(ang.device) if linear is None else _as_f(linear, ang.device)
+        device = _device_of(angular, linear)
+        ang = _zeros3(device) if angular is None else _as_f(angular, device)
+        lin = _zeros3(device) if linear is None else _as_f(linear, device)
         self.inner = _concat_bcast(ang, lin)
+
+    def linear(self) -> Tensor:
+        return self.inner[..., 3:]
+
+    def angular(self) -> Tensor:
+        return self.inner[..., :3]
+
+    def __add__(self, rhs: "SpatialMotion") -> "SpatialMotion":
+        return SpatialMotion.from_array(self.inner + rhs.inner)
+
+    def __sub__(self, rhs: "SpatialMotion") -> "SpatialMotion":
+        return SpatialMotion.from_array(self.inner - rhs.inner)
+
+    def __mul__(self, scale) -> "SpatialMotion":
+        return SpatialMotion.from_array(self.inner * scale)
+
+    __rmul__ = __mul__
 
 
 class SpatialForce(_SpatialBase):
@@ -171,22 +253,66 @@ class SpatialForce(_SpatialBase):
                 raise ValueError("Cannot specify both array and linear/torque")
             self.inner = _as_f(arr)
             return
-        t = _zeros3() if torque is None else _as_f(torque)
-        f = _zeros3(t.device) if linear is None else _as_f(linear, t.device)
+        device = _device_of(torque, linear)
+        t = _zeros3(device) if torque is None else _as_f(torque, device)
+        f = _zeros3(device) if linear is None else _as_f(linear, device)
         self.inner = _concat_bcast(t, f)
+
+    def force(self) -> Tensor:
+        return self.inner[..., 3:]
+
+    linear = force
+
+    def torque(self) -> Tensor:
+        return self.inner[..., :3]
+
+    def __add__(self, rhs: "SpatialForce") -> "SpatialForce":
+        return SpatialForce.from_array(self.inner + rhs.inner)
+
+    def __sub__(self, rhs: "SpatialForce") -> "SpatialForce":
+        return SpatialForce.from_array(self.inner - rhs.inner)
+
+    def __mul__(self, scale) -> "SpatialForce":
+        return SpatialForce.from_array(self.inner * scale)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, rhs: "SpatialInertia") -> SpatialMotion:
+        """Force / inertia -> acceleration."""
+        accel = self.force() / rhs.mass()[..., None]
+        ang = self.torque() / rhs.inertia_diag()
+        return SpatialMotion.from_array(torch.cat([ang, accel], dim=-1))
 
 
 class SpatialInertia(_SpatialBase):
     """[ixx,iyy,izz, px,py,pz, m] diagonalized inertia."""
 
     def __init__(self, mass, inertia=None, momentum=None):
-        m = _as_f(mass)
+        device = _device_of(mass, inertia, momentum)
+        m = _as_f(mass, device)
         i = (m[..., None] * torch.ones(3, dtype=m.dtype, device=m.device)
-             if inertia is None else _as_f(inertia, m.device))
+             if inertia is None else _as_f(inertia, device))
         p = (torch.zeros(3, dtype=m.dtype, device=m.device)
-             if momentum is None else _as_f(momentum, m.device))
+             if momentum is None else _as_f(momentum, device))
         batch = torch.broadcast_shapes(m.shape, i.shape[:-1], p.shape[:-1])
         i = i.expand(batch + (3,))
         p = p.expand(batch + (3,))
         m = m.expand(batch)[..., None]
         self.inner = torch.cat([i, p, m], dim=-1)
+
+    def mass(self) -> Tensor:
+        return self.inner[..., 6]
+
+    def inertia_diag(self) -> Tensor:
+        return self.inner[..., :3]
+
+    def momentum(self) -> Tensor:
+        return self.inner[..., 3:6]
+
+    def __mul__(self, rhs: SpatialMotion) -> SpatialForce:
+        """Inertia * motion -> momentum wrench."""
+        force = self.mass()[..., None] * rhs.linear() - torch.linalg.cross(
+            self.momentum(), rhs.angular())
+        torque = self.inertia_diag() * rhs.angular() + torch.linalg.cross(
+            self.momentum(), rhs.linear())
+        return SpatialForce.from_array(torch.cat([torque, force], dim=-1))

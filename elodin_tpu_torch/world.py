@@ -89,7 +89,19 @@ class WorldMeta:
         self.entity_names: dict[str, int] = {
             m.name: eid for eid, m in builder.entity_metadata.items()
         }
+        # (from, to) pairs of every u64[2] column, for explicit-edge queries
+        self._edge_cols: dict[str, list[tuple[int, int]]] = {
+            n: [(int(v[0]), int(v[1])) for v in c.values]
+            for n, c in builder.columns.items()
+            if c.component.ty.shape == (2,)
+            and c.component.ty.ty == PrimitiveType.U64
+        }
         self.sim_time_step: float = builder.sim_time_step
+
+    def edge_values(self, name: str) -> list[tuple[int, int]]:
+        if name not in self._edge_cols:
+            raise KeyError(f"edge component {name!r} not found")
+        return self._edge_cols[name]
 
 
 class WorldBuilder:
