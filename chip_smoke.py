@@ -66,7 +66,24 @@ The n-body path and its kernel (pairwise_gravity):
 12. device trace of the n-body kernel path (16384 bodies, f32, 20 ticks),
     then a cProfile of the same run: where the host's time per tick goes.
 
-13. a JSON line of the kernels, then the last line
+The falcon9 RTLS Monte Carlo campaign (eager PyTorch ops under
+``torch.func.vmap``; no hand kernel):
+
+13. ``examples.falcon9.batched.make_campaign(10000, seed=0,
+    device="cuda")`` (LHS draws, f64), then ``BatchedCampaign.run(300,
+    history_every=100, history_components=[world_pos, world_vel, phase,
+    prop_kg], until=phase == DOWN)``: 3 s of the mission (spool-up,
+    release from the hold-down, liftoff, 60 guidance ticks).  Both kernels'
+    launch counts are set to 0 before and read after (the path has no
+    hand kernel).  Checks: every column finite, tick == 300 and lifted ==
+    1 in every sample, guidance on 60 ticks, the last history emit equal
+    to the final state bitwise, and the first 8 samples equal to the port's
+    run on the CPU from the same draws to ≤ 1e-9 per channel group
+    (``batched.state_errors``).  Then ms/tick with and without guidance
+    (25 single ticks), sample-ticks/s, the projected full-mission wall, the
+    device trace and a cProfile of 20 ticks each.
+
+14. a JSON line of the kernels, then the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -80,6 +97,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 DT = 1.0 / 120.0
@@ -91,6 +109,13 @@ TRACE_TICKS = 20
 NBODY_BODIES, NBODY_TICKS, NBODY_DT = 16384, 100, 60.0
 EDGE_BODIES, EDGE_TICKS, EDGE_TRACE_TICKS = 4096, 50, 5
 PROBED_BODIES, PROBED_TICKS = 128, 10
+F9_SAMPLES, F9_TICKS, F9_HISTORY_EVERY = 10000, 300, 100
+F9_CPU_SAMPLES, F9_TIMED_TICKS, F9_TOL = 8, 25, 1e-9
+# the JAX package's campaign on the CPU (examples/falcon9, LHS seed 0,
+# history every 100 ticks): the tick at which every sample has latched
+# DOWN, and the first tick at which a sample is in DESCENT (guidance at
+# full rate from then on)
+JAX_F9_SAMPLES, JAX_F9_ALL_DOWN_TICK, JAX_F9_FIRST_DESCENT_TICK = 1024, 54400, 34300
 
 
 def _time_ms(fn, reps=3):
@@ -510,6 +535,106 @@ def _nbody(el, interop):
     }
 
 
+def _falcon9(el):
+    """Phase 13: the falcon9 RTLS Monte Carlo campaign (no hand kernel)."""
+    from elodin_tpu_torch.examples.falcon9 import batched as f9
+    from elodin_tpu_torch.monte_carlo import BatchedCampaign
+    from elodin_tpu_torch.ops import pairwise as pw
+    from elodin_tpu_torch.ops import sixdof_kernel as sk
+
+    el.set_float_policy("f64")
+    t0 = time.perf_counter()
+    campaign, draws = f9.make_campaign(F9_SAMPLES, seed=0, device="cuda")
+    setup_s = time.perf_counter() - t0
+    sk.LAUNCHES = pw.LAUNCHES = 0
+    result = campaign.run(F9_TICKS, history_every=F9_HISTORY_EVERY,
+                          history_components=f9.HISTORY_COMPONENTS, until=f9.until_down)
+    torch.cuda.synchronize()
+    launches = {"sixdof_rk4": sk.LAUNCHES, "pairwise_gravity": pw.LAUNCHES}
+    print(f"falcon9 campaign ({F9_SAMPLES} samples, f64, LHS seed 0): set-up {setup_s:.3f} s, "
+          f"BatchedCampaign.run({F9_TICKS}, history_every={F9_HISTORY_EVERY}, until=DOWN) "
+          f"{result.wall_seconds:.3f} s, {result.ticks} ticks, guidance ran on "
+          f"{campaign.gated_runs} ticks, {F9_SAMPLES * result.ticks / result.wall_seconds:.4g} "
+          f"sample-ticks/s; hand-kernel launches {launches} (the path has none)")
+
+    # checks, each raising
+    final = {k: result.column(k) for k in result.final}
+    for k, v in final.items():
+        if not np.isfinite(v.astype(np.float64)).all():
+            raise AssertionError(f"falcon9 column {k} is not finite")
+    if result.ticks != F9_TICKS or not (final["tick"] == F9_TICKS).all():
+        raise AssertionError(f"falcon9 ticks {result.ticks}, tick column "
+                             f"{np.unique(final['tick'])}, expected {F9_TICKS}")
+    if not (final["lifted"] == 1.0).all():
+        raise AssertionError(f"{int((final['lifted'] != 1.0).sum())} samples did not lift off")
+    if campaign.gated_runs != F9_TICKS // 5:
+        raise AssertionError(f"guidance ran {campaign.gated_runs} times in {F9_TICKS} ticks")
+    for k, hist in result.history.items():
+        if not np.array_equal(hist[-1], final[k]):
+            raise AssertionError(f"the last history emit of {k} is not the final state")
+    print(f"falcon9 checks: every column finite, tick == {F9_TICKS} and lifted == 1 in every "
+          f"sample, the last of {result.history['phase'].shape[0]} history emits equals the "
+          f"final state bitwise, phases {sorted(set(np.unique(final['phase']).tolist()))}")
+
+    # the first samples against the port on the CPU from the same draws
+    world, system = f9.build(None, sensors=False)
+    cpu = BatchedCampaign(world, system, F9_CPU_SAMPLES,
+                          f9.overrides_of({k: v[:F9_CPU_SAMPLES] for k, v in draws.items()}),
+                          simulation_rate=f9.SIM_RATE_HZ, device="cpu")
+    t0 = time.perf_counter()
+    cpu_result = cpu.run(F9_TICKS, history_every=F9_HISTORY_EVERY,
+                         history_components=f9.HISTORY_COMPONENTS, until=f9.until_down)
+    cpu_s = time.perf_counter() - t0
+    errs = f9.state_errors({k: v[:F9_CPU_SAMPLES] for k, v in final.items()},
+                           {k: cpu_result.column(k) for k in cpu_result.final})
+    worst = max(errs, key=errs.get)
+    print(f"falcon9 card vs CPU, first {F9_CPU_SAMPLES} samples x {F9_TICKS} ticks (CPU run "
+          f"{cpu_s:.2f} s): worst max|Δ|/scale {errs[worst]:.3e} at {worst} (tol {F9_TOL:g}); "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(errs.items(), key=lambda kv: -kv[1])[:5]))
+    if not errs[worst] <= F9_TOL:
+        raise AssertionError(f"falcon9 card vs CPU: {worst} {errs[worst]:.3e} exceeds {F9_TOL:g}")
+
+    # ms/tick on ticks with and without guidance (one tick per run, synced)
+    gated, plain = [], []
+    for _ in range(F9_TIMED_TICKS):
+        before = campaign.gated_runs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        campaign.run(1)
+        torch.cuda.synchronize()
+        (gated if campaign.gated_runs > before else plain).append(
+            (time.perf_counter() - t0) * 1e3)
+    g_ms, p_ms = statistics.median(gated), statistics.median(plain)
+    every = f9.GUIDANCE_EVERY_TICKS
+    mean_ms = (g_ms + (every - 1) * p_ms) / every
+    print(f"falcon9 ms/tick at {F9_SAMPLES} samples: with guidance median {g_ms:.4g} "
+          f"(min {min(gated):.4g}, {len(gated)} ticks), without guidance median {p_ms:.4g} "
+          f"(min {min(plain):.4g}, {len(plain)} ticks), 1-in-{every} schedule "
+          f"{mean_ms:.4g} ms/tick, {F9_SAMPLES / (mean_ms * 1e-3):.4g} sample-ticks/s")
+    print(f"falcon9 projected full mission at {F9_SAMPLES} samples: {JAX_F9_ALL_DOWN_TICK} "
+          f"ticks (all-DOWN tick of the JAX run on the CPU, {JAX_F9_SAMPLES} samples) -> "
+          f"{_f9_projection(g_ms, p_ms, JAX_F9_ALL_DOWN_TICK, every):.4g} s, guidance 1 tick "
+          f"in {every} until the first DESCENT (tick {JAX_F9_FIRST_DESCENT_TICK}) and every "
+          f"tick after; {_f9_projection(g_ms, p_ms, f9.DEFAULT_MAX_TICKS, every):.4g} s for "
+          f"all {f9.DEFAULT_MAX_TICKS} ticks")
+
+    # device trace, then where the host's time per tick goes
+    ops, busy, wall = _device_trace(lambda: campaign.run(TRACE_TICKS))
+    print(f"device trace, falcon9 campaign ({F9_SAMPLES} samples, f64, run({TRACE_TICKS})): "
+          f"{ops / TRACE_TICKS:.1f} device ops/tick, device busy {busy / TRACE_TICKS:.4g} "
+          f"ms/tick, wall {wall / TRACE_TICKS:.4g} ms/tick, idle share {1 - busy / wall:.2%}")
+    _host_profile(f"host profile, falcon9 campaign ({F9_SAMPLES} samples, f64, "
+                  f"run({TRACE_TICKS}))", lambda: campaign.run(TRACE_TICKS), TRACE_TICKS)
+
+
+def _f9_projection(gated_ms, plain_ms, ticks, every):
+    """Seconds for ``ticks`` ticks: guidance on 1 tick in ``every`` until
+    the first sample reaches DESCENT, on every tick after."""
+    early = min(ticks, JAX_F9_FIRST_DESCENT_TICK)
+    n_gated = early // every + (ticks - early)
+    return (n_gated * gated_ms + (ticks - n_gated) * plain_ms) / 1e3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -540,12 +665,13 @@ def main() -> int:
         print(_build.build_log(name).strip())
 
     kernels = [_sixdof(el, interop), _nbody(el, interop)]
+    _falcon9(el)
 
     if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
            for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
 
-    # 13. results
+    # 14. results
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,8 +1,8 @@
 """elodin_tpu_torch: the PyTorch and CUDA port of ``elodin_tpu``.
 
 The same ``World`` / ``Body`` / ``@system`` / ``Query`` / ``GraphQuery`` /
-``six_dof`` / ``Exec`` surface, with component columns held as torch
-tensors on one device.  The batched 6-dof RK4 rollout
+``every`` / ``six_dof`` / ``Exec`` / ``monte_carlo.BatchedCampaign``
+surface, with component columns held as torch tensors on one device.  The batched 6-dof RK4 rollout
 (``ops.sixdof_kernel``) and all-pairs gravity (``ops.pairwise``) have
 hand-written CUDA kernels.  The package imports torch and numpy, never
 JAX.
@@ -10,8 +10,8 @@ JAX.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Annotated
+from dataclasses import dataclass  # noqa: F401  (el.dataclass)
+from typing import Annotated  # noqa: F401  (el.Annotated)
 
 import torch
 
@@ -26,6 +26,7 @@ from .entity import Archetype, C, Edge, EntityId, RevEdge, TotalEdge  # noqa: F4
 from .execimpl import Exec
 from .six_dof import Integrator, six_dof  # noqa: F401
 from .spatial import (  # noqa: F401
+    Quaternion,
     SpatialForce,
     SpatialInertia,
     SpatialMotion,
@@ -37,8 +38,12 @@ from .system import (  # noqa: F401
     LambdaSystem,
     Pipe,
     Query,
+    RateGroup,
     System,
     SystemBuilder,
+    every,
+    map,
+    map_seq,
     system,
 )
 from .world import DEFAULT_TIME_STEP, WorldBuilder  # noqa: F401
@@ -84,6 +89,14 @@ Force = Annotated[
 Inertia = Annotated[
     SpatialInertia,
     Component("inertia", ComponentType.SpatialPosF64, metadata={"priority": 5}),
+]
+# the globals: ``tick`` is u64 in the world and int64 on the device
+SimulationTick = Annotated[
+    torch.Tensor, Component("tick", ComponentType.U64, metadata={"priority": 7})
+]
+SimulationTimeStep = Annotated[
+    torch.Tensor,
+    Component("simulation_time_step", ComponentType.F64, metadata={"priority": 8}),
 ]
 
 
@@ -134,3 +147,6 @@ class World(WorldBuilder):
             telemetry_rate=telemetry_rate,
             device=device,
         )
+
+
+from . import monte_carlo as monte_carlo  # noqa: E402,F401

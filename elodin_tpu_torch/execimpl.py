@@ -5,7 +5,8 @@ The JAX package compiles ``n`` telemetry batches of ``stride`` ticks into
 one program.  Here the same ``build_step`` runs eagerly, tick by tick, in a
 Python loop; the tick count stays a runtime value.  At each telemetry
 boundary the state is copied to the host and appended to ``History``
-synchronously.
+synchronously.  Not ported yet: the telemetry pump, lockstep sessions and
+checkpoints.
 """
 
 from __future__ import annotations
@@ -209,6 +210,28 @@ class Exec:
                     self._tick * self.sim_time_step,
                     columns_to_numpy(cols, self.meta))
                 self.profiler.copy_s += time.perf_counter() - t0
+
+    # -- host-side control -------------------------------------------------
+
+    def write_component(self, qualified: str, value) -> None:
+        """Write one entity's value of a component ('entity.component'); the
+        next tick reads it.  The column is rebound, never written in
+        place."""
+        comp, row = self._history.resolve(qualified)
+        col = self.cols[comp]
+        v = np.asarray(value)
+        if v.dtype == np.uint64:
+            v = v.astype(np.int64)
+        col = col.clone()
+        col[row] = torch.as_tensor(v, device=col.device).to(col.dtype).reshape(col.shape[1:])
+        self.cols[comp] = col
+
+    def read_component(self, qualified: str) -> np.ndarray:
+        """One entity's current value of a component, as numpy (at least
+        1-d)."""
+        comp, row = self._history.resolve(qualified)
+        value = columns_to_numpy({comp: self.cols[comp][row:row + 1]}, self.meta)[comp]
+        return np.atleast_1d(value[0])
 
     # -- outputs ---------------------------------------------------------
 

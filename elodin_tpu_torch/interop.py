@@ -6,6 +6,9 @@ a dict of numpy columns (``WorldBuilder.snapshot()`` of this package or of
 the JAX package ``elodin_tpu``, or ``Exec.column_array`` of either) into the
 port's device columns, after checking each name, shape and dtype against
 the port's ``WorldMeta``; ``columns_to_numpy`` is its inverse.
+``campaign_columns_from_numpy`` does the same for a Monte Carlo campaign's
+columns, which carry a leading sample axis (``BatchedResult.final`` of
+either package).
 
 Unsigned 64-bit columns (``tick``, edges) are held as int64 on the device:
 torch has no uint64 arithmetic.  Both functions convert, and refuse values
@@ -26,9 +29,12 @@ def _expected(meta, name: str) -> tuple[tuple[int, ...], np.dtype]:
     return shape, _config.numpy_column_dtype(name, comp)
 
 
-def columns_from_numpy(cols: dict, meta, device) -> dict[str, torch.Tensor]:
+def columns_from_numpy(cols: dict, meta, device,
+                       n_samples: int | None = None) -> dict[str, torch.Tensor]:
     """numpy columns -> ``{name: tensor on device}``, checked against
-    ``meta`` under the active float policy."""
+    ``meta`` under the active float policy; with ``n_samples`` every column
+    carries a leading sample axis of that length."""
+    lead = () if n_samples is None else (int(n_samples),)
     missing = set(meta.components) - set(cols)
     extra = set(cols) - set(meta.components)
     if missing or extra:
@@ -39,6 +45,7 @@ def columns_from_numpy(cols: dict, meta, device) -> dict[str, torch.Tensor]:
     for name in meta.components:
         v = np.asarray(cols[name])
         shape, dtype = _expected(meta, name)
+        shape = lead + shape
         if v.shape != shape:
             raise ValueError(f"column {name!r}: shape {v.shape}, expected {shape}")
         if v.dtype != dtype:
@@ -50,6 +57,16 @@ def columns_from_numpy(cols: dict, meta, device) -> dict[str, torch.Tensor]:
         # a copy: the device columns never alias the caller's arrays
         out[name] = torch.tensor(v, device=device)
     return out
+
+
+def campaign_columns_from_numpy(cols: dict, meta, device) -> dict[str, torch.Tensor]:
+    """A campaign's numpy columns, each ``(n_samples, n_entities, *shape)``,
+    -> the port's campaign state on ``device``; the sample count is read
+    from the columns and must be the same in each."""
+    counts = {np.shape(v)[0] if np.ndim(v) else None for v in cols.values()}
+    if len(counts) != 1 or None in counts:
+        raise ValueError(f"columns disagree on the sample count: {sorted(map(str, counts))}")
+    return columns_from_numpy(cols, meta, device, n_samples=counts.pop())
 
 
 def columns_to_numpy(cols: dict, meta) -> dict[str, np.ndarray]:

@@ -1,2 +1,2 @@
 """Hand-written CUDA kernels of the port, with their plain PyTorch
-versions."""
+versions, and the table lookup ``interp``."""

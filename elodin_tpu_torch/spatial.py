@@ -1,7 +1,6 @@
 """Spatial algebra on torch tensors, batched over leading axes
-(counterpart of ``elodin_tpu/spatial.py``: the six-dof math and the
-spatial value types with their methods; ``Quaternion`` and MRP are not
-ported yet).
+(counterpart of ``elodin_tpu/spatial.py``: the six-dof math, ``Quaternion``
+and the spatial value types with their methods; MRP is not ported yet).
 
 Array layouts (trailing axis; any number of leading batch axes), the same
 as the JAX package's:
@@ -57,8 +56,8 @@ def _device_of(*parts):
 
 def quat_mul(a: Tensor, b: Tensor) -> Tensor:
     """Hamilton product."""
-    ax, ay, az, aw = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
-    bx, by, bz, bw = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    ax, ay, az, aw = a.unbind(-1)
+    bx, by, bz, bw = b.unbind(-1)
     x = aw * bx + ax * bw + ay * bz - az * by
     y = aw * by - ax * bz + ay * bw + az * bx
     z = aw * bz + ax * by - ay * bx + az * bw
@@ -70,12 +69,31 @@ def quat_norm_sq(q: Tensor) -> Tensor:
     return torch.sum(q * q, dim=-1, keepdim=True)
 
 
+def quat_identity(device=None) -> Tensor:
+    return _as_f([0.0, 0.0, 0.0, 1.0], device)
+
+
+def quat_inverse(q: Tensor) -> Tensor:
+    """conjugate / |q|^2."""
+    return quat_conj(q) / quat_norm_sq(q)
+
+
+def quat_from_axis_angle(axis, angle) -> Tensor:
+    axis = _as_f(axis)
+    angle = _as_f(angle, axis.device)
+    axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    half = angle / 2.0
+    return _concat_bcast(axis * torch.sin(half)[..., None], torch.cos(half)[..., None])
+
+
 def quat_normalize(q: Tensor) -> Tensor:
     return q * torch.rsqrt(torch.sum(q * q, dim=-1, keepdim=True))
 
 
 def quat_conj(q: Tensor) -> Tensor:
-    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
+    # a negation, not a product with a [-1,-1,-1,1] constant: the same
+    # values, with no host-to-device copy per call
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def _quat_sandwich(q: Tensor, v: Tensor) -> Tensor:
@@ -104,7 +122,7 @@ def stf_add_motion(transform: Tensor, motion: Tensor) -> Tensor:
 def _quat_homog_mat(q: Tensor):
     """Rows of the homogeneous rotation matrix M with q(0,v)q̄ == M @ v
     (no |q|^2 normalization)."""
-    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    x, y, z, w = q.unbind(-1)
     xx, yy, zz, ww = x * x, y * y, z * z, w * w
     xy, xz, xw = x * y, x * z, x * w
     yz, yw, zw = y * z, y * w, z * w
@@ -116,7 +134,7 @@ def _quat_homog_mat(q: Tensor):
 
 
 def _mat_vec(m, v: Tensor, transpose: bool = False) -> Tensor:
-    v0, v1, v2 = v[..., 0], v[..., 1], v[..., 2]
+    v0, v1, v2 = v.unbind(-1)
     if transpose:
         rows = ((m[0][0], m[1][0], m[2][0]), (m[0][1], m[1][1], m[2][1]),
                 (m[0][2], m[1][2], m[2][2]))
@@ -183,9 +201,57 @@ class _SpatialBase:
         return f"{type(self).__name__}({self.inner})"
 
 
+class Quaternion(_SpatialBase):
+    """[x, y, z, w] quaternion."""
+
+    def __init__(self, arr):
+        self.inner = _as_f(arr)
+
+    @staticmethod
+    def identity(device=None) -> "Quaternion":
+        return Quaternion.from_array(quat_identity(device))
+
+    @staticmethod
+    def from_axis_angle(axis, angle) -> "Quaternion":
+        return Quaternion.from_array(quat_from_axis_angle(axis, angle))
+
+    def vector(self) -> Tensor:
+        return self.inner
+
+    def normalize(self) -> "Quaternion":
+        return Quaternion.from_array(quat_normalize(self.inner))
+
+    def inverse(self) -> "Quaternion":
+        return Quaternion.from_array(quat_inverse(self.inner))
+
+    def conjugate(self) -> "Quaternion":
+        return Quaternion.from_array(quat_conj(self.inner))
+
+    def __mul__(self, rhs: "Quaternion") -> "Quaternion":
+        return Quaternion.from_array(quat_mul(self.inner, rhs.inner))
+
+    def __add__(self, rhs: "Quaternion") -> "Quaternion":
+        return Quaternion.from_array(self.inner + rhs.inner)
+
+    def __matmul__(self, rhs):
+        """Rotate a transform (composing the attitude), a motion or force
+        (both halves) or a 3-vector."""
+        q = self.inner
+        if isinstance(rhs, SpatialTransform):
+            return SpatialTransform.from_array(torch.cat(
+                [quat_mul(q, rhs.inner[..., :4]), quat_rotate(q, rhs.inner[..., 4:])],
+                dim=-1))
+        if isinstance(rhs, (SpatialMotion, SpatialForce)):
+            return type(rhs).from_array(torch.cat(
+                [quat_rotate(q, rhs.inner[..., :3]), quat_rotate(q, rhs.inner[..., 3:])],
+                dim=-1))
+        return quat_rotate(q, rhs if isinstance(rhs, Tensor) else
+                           torch.as_tensor(rhs, dtype=q.dtype, device=q.device))
+
+
 class SpatialTransform(_SpatialBase):
-    """[qx,qy,qz,qw, x,y,z] rigid transform.  ``angular()`` waits for the
-    port of ``Quaternion``, which it returns in the JAX package."""
+    """[qx,qy,qz,qw, x,y,z] rigid transform; ``angular`` may be a
+    ``Quaternion`` or its array."""
 
     def __init__(self, arr=None, angular=None, linear=None):
         if arr is not None:
@@ -193,14 +259,22 @@ class SpatialTransform(_SpatialBase):
                 raise ValueError("Cannot specify both array and linear/angular")
             self.inner = _as_f(arr)
             return
+        if isinstance(angular, Quaternion):
+            angular = angular.inner
         device = _device_of(angular, linear)
-        q = (_as_f([0.0, 0.0, 0.0, 1.0], device) if angular is None
-             else _as_f(angular, device))
+        q = quat_identity(device) if angular is None else _as_f(angular, device)
         lin = _zeros3(device) if linear is None else _as_f(linear, device)
         self.inner = _concat_bcast(q, lin)
 
     def linear(self) -> Tensor:
         return self.inner[..., 4:]
+
+    def angular(self) -> Quaternion:
+        return Quaternion.from_array(self.inner[..., :4])
+
+    @staticmethod
+    def from_axis_angle(axis, angle) -> "SpatialTransform":
+        return SpatialTransform(angular=Quaternion.from_axis_angle(axis, angle))
 
     def __add__(self, rhs):
         if isinstance(rhs, SpatialTransform):

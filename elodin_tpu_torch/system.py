@@ -10,9 +10,9 @@ identity (the mixed float policy in ``six_dof`` relies on that).
 
 ``@system`` functions take ``Query`` and ``GraphQuery`` arguments as in the
 JAX package.  ``Query.map`` runs under ``torch.func.vmap`` where JAX uses
-``jax.vmap``; ``GraphQuery.edge_fold`` keeps the JAX package's semantics,
-with Python loops where it scans.  Not ported yet: ``Query.map_seq`` and
-``join``, ``RateGroup``/``every`` and the ``map`` decorators.
+``jax.vmap``; ``Query.map_seq`` and ``GraphQuery.edge_fold`` keep the JAX
+package's semantics, with Python loops where it scans.  ``RateGroup``
+(``every``) branches on the host where the JAX package uses ``lax.cond``.
 """
 
 from __future__ import annotations
@@ -215,6 +215,68 @@ class LambdaSystem(System):
         return f"<system {self.name}>"
 
 
+class RateGroup(System):
+    """Multi-rate scheduling: run the wrapped system only on every
+    ``every``-th tick and hold its outputs in between.  Active ticks are 1,
+    1+every, 1+2*every, ... (the tick increments before user systems, and
+    the first tick must produce commands).  ``full_rate_when(cols)`` returns
+    a bool tensor; while any element is true the system runs every tick.
+
+    Where the JAX package gates with ``lax.cond``, the port branches on the
+    host, so the wrapped system really does not run on inactive ticks.
+    ``BatchedCampaign`` lifts the gate outside its sample vmap and tracks
+    the tick on the host; a RateGroup nested inside a vmap (whose tick is a
+    batched tensor) runs both branches and selects, as ``lax.cond`` does
+    under ``jax.vmap``."""
+
+    def __init__(self, every: int, sys_obj, full_rate_when=None):
+        if int(every) < 1:
+            raise ValueError(f"every must be >= 1, got {every}")
+        self.every = int(every)
+        self.system = as_system(sys_obj)
+        self.full_rate_when = full_rate_when
+
+    def active(self, tick: int, cols: dict) -> bool:
+        """The gate for a sample-uniform host ``tick``: on schedule, or
+        escalated by ``full_rate_when`` (one device read, taken only off
+        schedule)."""
+        if (tick - 1) % self.every == 0:
+            return True
+        return (self.full_rate_when is not None
+                and bool(torch.any(self.full_rate_when(cols))))
+
+    def _run(self, builder: SystemBuilder) -> dict:
+        b = SystemBuilder(builder.world, dict(builder.cols))
+        self.system.call(b)
+        # a rate-gated system cannot introduce columns: they would exist
+        # only on active ticks
+        return {k: b.cols[k] for k in builder.cols}
+
+    def call(self, builder: SystemBuilder) -> None:
+        if self.every == 1:
+            self.system.call(builder)
+            return
+        tick = builder.column("tick")[0]
+        if torch._C._functorch.is_batchedtensor(tick):
+            pred = (tick - 1) % self.every == 0
+            if self.full_rate_when is not None:
+                pred = pred | torch.any(self.full_rate_when(builder.cols))
+            new = self._run(builder)
+            builder.cols = {k: torch.where(_bcast_mask(pred, v.dim()), new[k], v)
+                            for k, v in builder.cols.items()}
+        elif self.active(int(tick), builder.cols):
+            builder.cols = self._run(builder)
+
+    def __repr__(self):
+        return f"<every {self.every} {self.system!r}>"
+
+
+def every(every_n: int, sys_obj, full_rate_when=None) -> System:
+    """``el.every(5, guidance)``: run a system at 1/N of the sim rate with
+    zero-order hold; see ``RateGroup``."""
+    return RateGroup(every_n, sys_obj, full_rate_when)
+
+
 def as_system(obj) -> System:
     """A System as is; None or () as the empty pipe; a Query-annotated
     function as an ``FnSystem``."""
@@ -325,6 +387,46 @@ class Query:
             out = vmap(lambda bs: f(*self._args(bs)))(self.bufs)
         return self._wrap_outputs(out_tps, pytree.tree_flatten(out)[0])
 
+    def map_seq(self, out_tps, f) -> "Query":
+        """``f`` entity by entity in a Python loop, so a Python branch in
+        ``f`` takes only the path its entity needs (the JAX package scans
+        with ``lax.scan`` to keep ``lax.cond`` short-circuiting)."""
+        if self.batch1:
+            bufs = pytree.tree_flatten(f(*self._args(self.bufs)))[0]
+        else:
+            rows = [pytree.tree_flatten(f(*self._args([b[i] for b in self.bufs])))[0]
+                    for i in range(self.bufs[0].shape[0] if self.bufs else 0)]
+            device = self.bufs[0].device if self.bufs else None
+            bufs = [torch.stack([_as_leaf(x, device) for x in leaves])
+                    for leaves in zip(*rows)]
+        return self._wrap_outputs(out_tps, bufs)
+
+    def join(self, other: "Query") -> "Query":
+        """The entities of both queries (this query's order), with both
+        queries' components."""
+        oset = set(other.entity_ids)
+        ids = [e for e in self.entity_ids if e in oset]
+        if not ids:
+            raise RuntimeError("joined query matched no entities")
+
+        def regather(q: Query):
+            if q.batch1:
+                if q.entity_ids != ids:
+                    raise RuntimeError("join dropped the only entity")
+                return list(q.bufs)
+            pos = {e: i for i, e in enumerate(q.entity_ids)}
+            rows = [pos[e] for e in ids]
+            if len(ids) == 1:
+                return [b[rows[0]] for b in q.bufs]
+            if rows == list(range(len(q.entity_ids))):
+                return list(q.bufs)
+            return [b[torch.as_tensor(rows, device=b.device)] for b in q.bufs]
+
+        return Query(self.builder, ids,
+                     self.component_data + other.component_data,
+                     self.component_classes + other.component_classes,
+                     regather(self) + regather(other), len(ids) == 1)
+
     def output(self, builder: SystemBuilder, args) -> None:
         for data, buf in zip(self.component_data, self.bufs):
             value = buf if not self.batch1 else torch.as_tensor(buf)[None]
@@ -355,7 +457,7 @@ class _QueryAlias:
         return getattr(self._cls, name)
 
     def __repr__(self):
-        return f"{self._cls.__name__}[{', '.join(map(repr, self.__args__))}]"
+        return f"{self._cls.__name__}[{', '.join(repr(a) for a in self.__args__)}]"
 
 
 def _args_of(tp) -> tuple:
@@ -660,3 +762,43 @@ class GraphQuery:
         batch1 = n_i == 1
         return Query(builder, from_ids, [Component.of(return_type)],
                      [return_type], [buf[0] if batch1 else buf], batch1)
+
+
+# ---------------------------------------------------------------------------
+# map decorators
+# ---------------------------------------------------------------------------
+
+
+def _map_decorator(func, seq: bool) -> System:
+    """A one-query ``FnSystem`` over ``func``'s annotated parameters, whose
+    return annotation (one component or a ``tuple[...]`` of them) names the
+    outputs."""
+    sig = inspect.signature(func)
+    tys = [p.annotation for p in sig.parameters.values()]
+    return_ty = sig.return_annotation
+    if isinstance(return_ty, types.GenericAlias):
+        return_ty = tuple(return_ty.__args__)
+
+    def inner(q):
+        if seq:
+            return q.map_seq(return_ty, func)
+        return q.map(return_ty, func)
+
+    inner.__name__ = getattr(func, "__name__", "map")
+    inner.__signature__ = inspect.Signature(
+        parameters=[inspect.Parameter(
+            "q", inspect.Parameter.POSITIONAL_OR_KEYWORD, annotation=Query[tuple(tys)])],
+        return_annotation=Query[return_ty if isinstance(return_ty, tuple) else (return_ty,)],
+    )
+    return FnSystem(inner, name=inner.__name__)
+
+
+def map(func) -> System:  # noqa: A001  (the el.map decorator)
+    """``@el.map``: ``func`` over every entity that has all of its
+    parameters' components, under ``torch.func.vmap``."""
+    return _map_decorator(func, seq=False)
+
+
+def map_seq(func) -> System:
+    """``@el.map_seq``: as ``map``, entity by entity (``Query.map_seq``)."""
+    return _map_decorator(func, seq=True)

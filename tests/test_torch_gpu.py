@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from elodin_tpu_torch.examples.falcon9 import batched as f9
 from elodin_tpu_torch.models.nbody import G, build_nbody
 from elodin_tpu_torch.models.sixdof_batch import batched_sixdof_init
 from elodin_tpu_torch.ops import pairwise as pw
@@ -137,3 +138,34 @@ def test_pairwise_kernel_empty_and_contract(cuda):
     with pytest.raises(ValueError):
         pw._pairwise_gravity_cuda(pos.cpu(), mass.cpu(), 1.0, 0.0)
     assert pw.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the falcon9 campaign (BatchedCampaign, eager PyTorch ops, no hand kernel)
+#
+# Stated tolerance, f64: ≤ 1e-9 per channel group (``state_errors``) after
+# 100 ticks: the card's transcendental functions and reductions round
+# differently from the CPU's in the last bit.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_falcon9_campaign_on_the_card_matches_the_cpu(cuda):
+    runs = {}
+    for device in (cuda, "cpu"):
+        campaign, _ = f9.make_campaign(64, seed=0, device=device)
+        result = campaign.run(100, history_every=50, history_components=f9.HISTORY_COMPONENTS,
+                              until=f9.until_down)
+        assert result.ticks == 100 and campaign.gated_runs == 20
+        runs[str(device)] = result
+    gpu, cpu = runs[str(cuda)], runs["cpu"]
+    assert gpu.final["world_pos"].device.type == "cuda"
+    ours = {k: gpu.column(k) for k in gpu.final}
+    ref = {k: cpu.column(k) for k in cpu.final}
+    for k in ours:
+        assert np.isfinite(ours[k].astype(np.float64)).all(), k
+    np.testing.assert_array_equal(ours["tick"], ref["tick"])
+    np.testing.assert_array_equal(ours["phase"], ref["phase"])
+    errs = f9.state_errors(ours, ref)
+    assert max(errs.values()) <= 1e-9, sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    np.testing.assert_array_equal(gpu.history["world_pos"][-1], ours["world_pos"])

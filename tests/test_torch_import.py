@@ -15,6 +15,11 @@ PORT_MODULES = [
     "elodin_tpu_torch.models",
     "elodin_tpu_torch.ops.sixdof_kernel",
     "elodin_tpu_torch.ops._build",
+    "elodin_tpu_torch.ops.interp",
+    "elodin_tpu_torch.frames",
+    "elodin_tpu_torch.monte_carlo",
+    "elodin_tpu_torch.examples.falcon9.sim",
+    "elodin_tpu_torch.examples.falcon9.batched",
 ]
 
 

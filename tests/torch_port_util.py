@@ -62,3 +62,28 @@ def rel_errs(ours, ref) -> dict[str, float]:
 def rel_err(ours, ref) -> float:
     """The worst of ``rel_errs``: each channel group against its own scale."""
     return max(rel_errs(ours, ref).values())
+
+
+def jax_falcon9(name: str):
+    """``examples/falcon9/<name>.py`` of the JAX package, loaded under the
+    key ``f9_<name>`` (as ``tests/test_falcon9.py`` loads it), with the
+    example's directory on ``sys.path`` while it runs so that its own plain
+    imports resolve."""
+    import importlib.util
+    import os
+    import sys
+
+    key = f"f9_{name}"
+    if key in sys.modules:
+        return sys.modules[key]
+    f9_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "examples", "falcon9")
+    sys.path.insert(0, f9_dir)
+    try:
+        spec = importlib.util.spec_from_file_location(key, os.path.join(f9_dir, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[key] = mod
+        spec.loader.exec_module(mod)
+        return mod
+    finally:
+        sys.path.pop(0)
