@@ -33,17 +33,22 @@ The batched 6-dof RK4 path and its kernel (sixdof_rk4):
    ≤ 1e-4 (per channel group, max |Δ| / max |ref|).
 5. kernel (4000 ticks) and plain version (20 ticks) timed with CUDA
    events, f32 and f64, at 1024 bodies and at the JAX bench's kernel
-   width, 131072 bodies.
+   width, 131072 bodies; the bound of a tick there, from the function's
+   operations and SFU results (``SIXDOF_TICK_OPS``), with the loops of the
+   kernel's SASS beside it (cuobjdump, read by ``scripts/sass_loops.py``).
 6. device trace with ``torch.profiler``: device ops per tick, device busy
    time and idle share of the ECS loop (8192 bodies, f64, 20 ticks) and
    of one kernel launch at 131072 bodies x 4000 ticks, f32 and f64.
 
 The n-body path and its kernel (pairwise_gravity):
 
-7. kernel vs plain PyTorch version on the card, f32 and f64, at 300 and
-   16384 bodies, on the ``build_nbody(N, seed=2)`` positions and masses
-   and on a unit cloud with eps = 0.1 and two coincident bodies:
-   max |Δ| / max |ref| ≤ 1e-4 in f32 and ≤ 1e-12 in f64.
+7. kernel vs plain PyTorch version on the card, f32 and f64, at every
+   size where the launch plan changes (1, 2, 127, 129, 300, 1000, 4099
+   and 16384 bodies), on the ``build_nbody(N, seed=2)`` positions and
+   masses (a sun at the origin, so d2 == 0 against the tail slots) and on
+   a unit cloud with eps = 0.1 and two coincident bodies: max |Δ| / max
+   |ref| ≤ 1e-4 in f32 and ≤ 1e-12 in f64 (max |Δ| where the reference is
+   all zero), finite, and two launches bitwise equal.
 8. the main path at full width: ``build_nbody(16384, seed=2)`` under the
    f32 policy, ``World.build(build_system(60.0, use_kernel=True),
    device="cuda")`` and ``Exec.run(100)``.  The kernel's launch count is
@@ -61,8 +66,16 @@ The n-body path and its kernel (pairwise_gravity):
     run once and reject it, every tick must fold sequentially, the kernel
     must launch 0 times, and the state must agree with the kernel path on
     the same world to ≤ 1e-10.
-11. kernel and plain version timed with CUDA events at 16384 bodies, f32
-    and f64: µs per call and pairs/s.
+11. kernel timed with CUDA events (20 back-to-back calls between two
+    events, min and median of 5, after a warm-up) at 300, 1024, 4096 and
+    16384 bodies, f32 and f64: the launch plan, µs per call, pairs/s, the
+    bound (the larger of the function's operations, ``PAIR_OPS``, over the
+    FP32 or FP64 pipe's peak, one reciprocal square root a pair over the
+    SFU's, and the bytes over HBM's) with the
+    resource that sets it, and the share of the bound; then the device
+    time of a launch from ``torch.profiler`` (at small sizes the calls'
+    host time, not the kernel, sets the CUDA-event time); the plain
+    version at 16384 bodies.
 12. device trace of the n-body kernel path (16384 bodies, f32, 20 ticks),
     then a cProfile of the same run: where the host's time per tick goes.
 
@@ -83,8 +96,10 @@ The falcon9 RTLS Monte Carlo campaign (eager PyTorch ops under
     (25 single ticks), sample-ticks/s, the projected full-mission wall, the
     device trace and a cProfile of 20 ticks each.
 
-14. a JSON line of the kernels, then the last line
-    ``{"ok": true, "device": {...}}``.
+14. a JSON line of the kernels (time, plain version's time and bound at
+    the main path's width, launches on the main path; no PyTorch call
+    computes either function, so ``library_ms`` is null), then the last
+    line ``{"ok": true, "device": {...}}``.
 """
 
 import cProfile
@@ -111,6 +126,33 @@ EDGE_BODIES, EDGE_TICKS, EDGE_TRACE_TICKS = 4096, 50, 5
 PROBED_BODIES, PROBED_TICKS = 128, 10
 F9_SAMPLES, F9_TICKS, F9_HISTORY_EVERY = 10000, 300, 100
 F9_CPU_SAMPLES, F9_TIMED_TICKS, F9_TOL = 8, 25, 1e-9
+PAIRWISE_SHAPES = (1, 2, 127, 129, 300, 1000, 4099, NBODY_BODIES)
+PAIRWISE_TIMED = (300, 1024, 4096, NBODY_BODIES)
+# Published 700 W peaks of one H100 SXM (NVIDIA's data sheet): FP32 and
+# FP64 outside the tensor cores, and HBM; the SFU returns 16 results a
+# clock per SM, here at the 1980 MHz boost clock.
+PEAK_FP32, PEAK_FP64, PEAK_HBM = 67e12, 34e12, 3.35e12
+SFU_PER_SM_CLOCK, BOOST_HZ = 16, 1.98e9
+# the pairwise function's operations a pair, an FMA counted as 2, with
+# eps = 0 (one more with eps): 3 subtractions, |d|^2 (5), inv^3 m (3), the
+# three sums (6); in f64 the refinement of the reciprocal square root adds
+# 8 (two multiplies, three FMAs).  One reciprocal square root a pair goes
+# to the SFU.  The d2 == 0 remap is no work of the function a pair.
+PAIR_OPS = {torch.float32: 17, torch.float64: 25}
+# K1's operations per body-tick, counted from the function
+# (sixdof_rk4.cu's rk4_tick: four stages of the effector and sixdof_accel
+# algebra, five normalised quaternion updates, the RK4 sums), an FMA
+# counted as 2, and what stays constant for a body over the ticks (1/inv_m
+# and the effector constants times m) left out: 891 adds and multiplies, 4
+# reciprocals, 9 reciprocal square roots and 4 square roots, one SFU result
+# each.  The IEEE reciprocal and square root add the shortest correctly
+# rounded sequence after the SFU's seed: in f32 4 operations a reciprocal
+# (one Newton step), 6 a square root, none a reciprocal square root
+# (rsqrtf is the SFU's result); in f64 8 a reciprocal and a reciprocal
+# square root (two Newton steps, the cubic step), 14 a square root.
+SIXDOF_TICK_OPS = {torch.float32: 891 + 4 * 4 + 4 * 6,
+                   torch.float64: 891 + 4 * 8 + 9 * 8 + 4 * 14}
+SIXDOF_TICK_SFU = 4 + 9 + 4
 # the JAX package's campaign on the CPU (examples/falcon9, LHS seed 0,
 # history every 100 ticks): the tick at which every sample has latched
 # DOWN, and the first tick at which a sample is in DESCENT (guidance at
@@ -118,9 +160,9 @@ F9_CPU_SAMPLES, F9_TIMED_TICKS, F9_TOL = 8, 25, 1e-9
 JAX_F9_SAMPLES, JAX_F9_ALL_DOWN_TICK, JAX_F9_FIRST_DESCENT_TICK = 1024, 54400, 34300
 
 
-def _time_ms(fn, reps=3):
-    """(min, median) milliseconds of fn() on the card, by CUDA events,
-    after one warm-up call."""
+def _time_ms(fn, reps=3, calls=1):
+    """(min, median) milliseconds per call of fn() on the card, by CUDA
+    events around ``calls`` back-to-back calls, after one warm-up call."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -128,10 +170,11 @@ def _time_ms(fn, reps=3):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / calls)
     return min(times), statistics.median(times)
 
 
@@ -179,6 +222,47 @@ def _host_profile(label, fn, ticks, top=10):
     show("the port's functions by cumulative time",
          sorted((r for r in rows if "elodin_tpu_torch" in r[0][0]),
                 key=lambda r: -r[1][3]))
+
+
+def _bound(ops, mufu, nbytes, dtype):
+    """(least ms the card could take, the resource that sets it) for
+    ``ops`` operations on the FP32 or FP64 pipe, ``mufu`` results of the
+    SFU and ``nbytes`` read or written once in device memory."""
+    pipe = "FP64 pipe" if dtype == torch.float64 else "FP32 pipe"
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {pipe: ops / (PEAK_FP64 if dtype == torch.float64 else PEAK_FP32),
+             "SFU": mufu / (SFU_PER_SM_CLOCK * sm_count * BOOST_HZ),
+             "memory": nbytes / PEAK_HBM}
+    resource = max(times, key=times.get)
+    return times[resource] * 1e3, resource
+
+
+def _bound_by(resource):
+    return "bytes" if resource == "memory" else "operations"
+
+
+def _pairwise_bound(n, dtype, eps=0.0):
+    """``_bound`` of one all-pairs call on ``n`` bodies: N^2 pairs, each
+    read and written value moved once (positions, masses, accelerations)."""
+    pairs = n * n
+    return _bound(pairs * (PAIR_OPS[dtype] + (eps != 0.0)), pairs,
+                  7 * n * dtype.itemsize, dtype)
+
+
+def _print_sixdof_sass(dtype):
+    """The loops of K1 as built, from its SASS (cuobjdump): instructions,
+    FP32 or FP64 pipe operations (an FMA counted as 2) and SFU results.  A
+    diagnostic of the issue slots the compiler spent, beside the
+    function's own count (``SIXDOF_TICK_OPS``); never the bound."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import sass_loops
+    from elodin_tpu_torch.ops import _build
+
+    text = sass_loops.sass_text(str(_build.library_path("sixdof_rk4")))
+    tag = "sixdof_rk4_kernelI" + ("f" if dtype == torch.float32 else "d")
+    for name, start, end, count, classes, fp32, fp64, _ in sass_loops.loop_counts(text, tag):
+        print(f"K1 SASS, {dtype}: loop 0x{start:x}-0x{end:x} of {count} instructions, "
+              f"FP32 ops {fp32}, FP64 ops {fp64}, MUFU {classes['MUFU']}")
 
 
 def _rel_groups(ours, ref):
@@ -315,6 +399,18 @@ def _sixdof(el, interop):
               f"{BENCH_TICKS} ticks, one call): {ops} device ops, busy "
               f"{busy:.4g} ms, wall {wall:.4g} ms, idle share {1 - busy / wall:.2%}")
 
+    # the bound of one tick at the bench width, from the function's
+    # operations; the SASS's loop counts beside it
+    bounds = {}
+    for dtype in (torch.float32, torch.float64):
+        _print_sixdof_sass(dtype)
+        ops, mufu, n = SIXDOF_TICK_OPS[dtype], SIXDOF_TICK_SFU, BENCH_BODIES
+        bounds[dtype] = _bound(n * ops, n * mufu, 30 * n * dtype.itemsize / BENCH_TICKS, dtype)
+        ms = timing[n, dtype][0]
+        print(f"K1 bound, {dtype}, {n} bodies: the function's {ops} ops and {mufu} SFU "
+              f"results per body-tick ->{bounds[dtype][0] * 1e3:.4g} us/tick ({bounds[dtype][1]}); "
+              f"kernel {ms * 1e3:.4g} us/tick, {bounds[dtype][0] / ms:.1%} of the bound")
+
     return {
         "name": "sixdof_rk4",
         "route": "cuda",
@@ -324,12 +420,19 @@ def _sixdof(el, interop):
         "max_abs_err": errs[MAIN_BODIES, torch.float32][1],
         "ms": timing[BENCH_BODIES, torch.float32][0],
         "plain_ms": timing[BENCH_BODIES, torch.float32][1],
+        "bound_ms": bounds[torch.float32][0],
+        "bound_by": _bound_by(bounds[torch.float32][1]),
+        "library_ms": None,
         "units": (f"max_abs_err: float32 vs plain at {MAIN_BODIES} bodies x "
-                  f"{MAIN_TICKS} ticks; ms: per tick at {BENCH_BODIES} "
-                  "bodies, float32"),
+                  f"{MAIN_TICKS} ticks; ms, plain_ms, bound_ms: per tick at "
+                  f"{BENCH_BODIES} bodies, float32; launches: the two "
+                  "sixdof_rollout calls of the main path (f64, f32); library_ms: "
+                  "no PyTorch call computes a 6-dof RK4 rollout"),
         "float64": {"max_abs_err": errs[MAIN_BODIES, torch.float64][1],
                     "ms": timing[BENCH_BODIES, torch.float64][0],
-                    "plain_ms": timing[BENCH_BODIES, torch.float64][1]},
+                    "plain_ms": timing[BENCH_BODIES, torch.float64][1],
+                    "bound_ms": bounds[torch.float64][0],
+                    "bound_by": _bound_by(bounds[torch.float64][1])},
     }
 
 
@@ -372,27 +475,36 @@ def _nbody(el, interop):
         else:  # unit cloud, two coincident bodies
             rng = torch.Generator().manual_seed(n)
             pos = torch.randn(n, 3, generator=rng, dtype=torch.float64) * 10
-            pos[7] = pos[3]
+            if n > 7:
+                pos[7] = pos[3]
             mass, g, eps = torch.rand(n, generator=rng, dtype=torch.float64) + 1, 1.0, 0.1
         return (torch.as_tensor(pos, device="cuda", dtype=dtype).contiguous(),
                 torch.as_tensor(mass, device="cuda", dtype=dtype).contiguous(), g, eps)
 
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     errs = {}
-    for n in (300, NBODY_BODIES):
+    for n in PAIRWISE_SHAPES:
         for kind in ("nbody", "cloud"):
+            parts = []
             for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
                 pos, mass, g, eps = inputs(n, kind, dtype)
                 ours = pw.pairwise_gravity(pos, mass, g=g, eps=eps)
+                again = pw.pairwise_gravity(pos, mass, g=g, eps=eps)
                 ref = pw.pairwise_gravity_reference(pos, mass, g=g, eps=eps)
                 torch.cuda.synchronize()
                 d = (ours.double() - ref.double()).abs().max().item()
-                rel = d / ref.double().abs().max().item()
+                scale = ref.double().abs().max().item()
+                rel = d / scale if scale > 0.0 else d
                 errs[n, kind, dtype] = d
-                print(f"pairwise kernel vs plain, {kind}, {n} bodies, {dtype}, "
-                      f"eps {eps}: max|Δ|/max|ref| {rel:.3e} (tol {tol:g}), "
-                      f"max|Δ| {d:.3e}")
+                parts.append(f"{str(dtype)[6:]} max|Δ|/max|ref| {rel:.3e} (tol {tol:g}), "
+                             f"max|Δ| {d:.3e}")
                 if not (torch.isfinite(ours).all() and rel <= tol):
                     raise AssertionError(f"pairwise kernel vs plain {n} {kind} {dtype}: {rel:.3e}")
+                if not torch.equal(ours, again):
+                    raise AssertionError(f"pairwise kernel {n} {kind} {dtype}: two launches differ")
+            print(f"pairwise kernel vs plain, {kind}, {n} bodies, eps {eps}, plan "
+                  f"{tuple(pw._launch_plan(n, sm_count))}: " + "; ".join(parts)
+                  + "; two launches bitwise equal")
 
     # 8. main path at full width: World.build -> Exec.run, f32, then f64
     runs = {}
@@ -493,19 +605,36 @@ def _nbody(el, interop):
     _compare(f"n-body probed edge fold vs kernel path, f64, {PROBED_BODIES} bodies x "
              f"{PROBED_TICKS} ticks", probed.cols, kern.cols, state, ECS_F64_TOL)
 
-    # 11. kernel and plain version timed at the main path's width
+    # 11. kernel timed at the plan's shapes, the plain version at the main
+    # path's width, each against the bound
     timing = {}
+    for n in PAIRWISE_TIMED:
+        for dtype in (torch.float32, torch.float64):
+            pos, mass, g, eps = inputs(n, "nbody", dtype)
+            k_min, k_med = _time_ms(lambda: pw.pairwise_gravity(pos, mass, g=g),
+                                    reps=5, calls=20)
+            ops, busy, _ = _device_trace(
+                lambda: [pw.pairwise_gravity(pos, mass, g=g) for _ in range(10)])
+            bound, resource = _pairwise_bound(n, dtype)
+            timing[n, dtype] = (k_min, bound, resource)
+            plan = pw._launch_plan(n, sm_count)
+            print(f"pairwise_gravity, {n} bodies, {dtype}: plan threads {plan.threads} "
+                  f"R {plan.r} S {plan.s} slice {plan.slice} ({plan.grid(n)} CTAs); kernel "
+                  f"min {k_min * 1e3:.4g} us median {k_med * 1e3:.4g} us, "
+                  f"{n * n / (k_min * 1e-3):.4g} pairs/s; bound {bound * 1e3:.4g} us "
+                  f"({resource}), {bound / k_min:.1%} of the bound; device time per "
+                  f"launch (profiler, {ops} device ops in 10 calls) {busy / ops * 1e3:.4g} us, "
+                  f"{bound / (busy / ops):.1%} of the bound")
+    plain = {}
     for dtype in (torch.float32, torch.float64):
         pos, mass, g, eps = inputs(NBODY_BODIES, "nbody", dtype)
-        k_min, k_med = _time_ms(lambda: pw.pairwise_gravity(pos, mass, g=g))
         p_min, p_med = _time_ms(lambda: pw.pairwise_gravity_reference(pos, mass, g=g))
-        timing[dtype] = (k_min, p_min)
-        pairs = NBODY_BODIES ** 2
-        print(f"pairwise_gravity, {NBODY_BODIES} bodies, {dtype}: kernel min "
-              f"{k_min * 1e3:.4g} us median {k_med * 1e3:.4g} us, "
-              f"{pairs / (k_min * 1e-3):.4g} pairs/s; plain min {p_min * 1e3:.4g} us "
-              f"median {p_med * 1e3:.4g} us, {pairs / (p_min * 1e-3):.4g} pairs/s; "
-              f"kernel/plain speedup {p_min / k_min:.4g}x")
+        plain[dtype] = p_min
+        k_min = timing[NBODY_BODIES, dtype][0]
+        print(f"pairwise_gravity plain version, {NBODY_BODIES} bodies, {dtype}: min "
+              f"{p_min * 1e3:.4g} us median {p_med * 1e3:.4g} us, "
+              f"{NBODY_BODIES ** 2 / (p_min * 1e-3):.4g} pairs/s; kernel/plain speedup "
+              f"{p_min / k_min:.4g}x")
 
     # 12. device trace of the kernel path, then where its host time goes
     ops, busy, wall = _device_trace(lambda: nb32.run(TRACE_TICKS))
@@ -517,6 +646,7 @@ def _nbody(el, interop):
     _host_profile(f"host profile, n-body kernel path (f32, {NBODY_BODIES} bodies, "
                   f"run({TRACE_TICKS}))", lambda: nb32.run(TRACE_TICKS), TRACE_TICKS)
 
+    main32, main64 = timing[NBODY_BODIES, torch.float32], timing[NBODY_BODIES, torch.float64]
     return {
         "name": "pairwise_gravity",
         "route": "cuda",
@@ -524,14 +654,21 @@ def _nbody(el, interop):
         "replaces": "elodin_tpu/ops/pairwise.py:50",
         "launches": runs["f32"][1],
         "max_abs_err": errs[NBODY_BODIES, "nbody", torch.float32],
-        "ms": timing[torch.float32][0],
-        "plain_ms": timing[torch.float32][1],
+        "ms": main32[0],
+        "plain_ms": plain[torch.float32],
+        "bound_ms": main32[1],
+        "bound_by": _bound_by(main32[2]),
+        "library_ms": None,
         "units": (f"max_abs_err: float32 vs plain, m/s^2, build_nbody({NBODY_BODIES}); "
-                  f"ms: per call at {NBODY_BODIES} bodies, float32; launches: "
-                  f"Exec.run({NBODY_TICKS}) of the f32 main path"),
+                  f"ms, plain_ms, bound_ms: per call at {NBODY_BODIES} bodies, float32; "
+                  f"launches: Exec.run({NBODY_TICKS}) of the f32 main path; library_ms: "
+                  "no PyTorch call computes softened all-pairs gravity"),
         "float64": {"max_abs_err": errs[NBODY_BODIES, "nbody", torch.float64],
-                    "ms": timing[torch.float64][0],
-                    "plain_ms": timing[torch.float64][1]},
+                    "ms": main64[0],
+                    "plain_ms": plain[torch.float64],
+                    "bound_ms": main64[1],
+                    "bound_by": _bound_by(main64[2]),
+                    "launches": runs["f64"][1]},
     }
 
 

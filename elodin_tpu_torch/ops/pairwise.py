@@ -5,6 +5,8 @@
 ``pairwise_gravity`` launches the hand-written CUDA kernel
 ``csrc/pairwise_gravity.cu`` on a CUDA tensor (or raises) and runs
 ``pairwise_gravity_reference``, the plain PyTorch version, on a CPU tensor.
+The kernel's launch plan (threads per CTA, bodies i per thread, CTAs per
+cluster splitting j, and the j-slice) comes from ``_launch_plan``.
 Self-pairs vanish through the exact ``d2 == 0 -> 1`` remap and a zero
 displacement, as in the JAX package; the comparison is ``== 0``, never a
 threshold.  Not ported: the Gram-matrix variant (rejected in the JAX
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +32,15 @@ REFERENCE_CHUNK = 1024
 
 _LAUNCHERS = {torch.float32: "pairwise_gravity_f32",
               torch.float64: "pairwise_gravity_f64"}
+
+# the kernel's j-tile (bodies a warp stages at a time); j-slices are
+# multiples of it
+TILE = 64
+# CTAs per cluster (the portable limit) and warps per CTA
+MAX_CLUSTER = 8
+MAX_WARPS = 16
+# warps a SM the plan fills at most, in one wave
+WARPS_PER_SM = 32
 
 
 # ---------------------------------------------------------------------------
@@ -67,15 +79,75 @@ def pairwise_gravity_reference(pos, mass, g: float = 6.6743e-11,
 # ---------------------------------------------------------------------------
 
 
+class Plan(NamedTuple):
+    """One launch of the kernel.  A cluster of ``s`` CTAs holds ``32 * r``
+    rows i (``r`` a thread); each CTA has ``threads`` threads, ``threads /
+    32`` warps, and warp w of CTA rank k sweeps j in ``[(k * threads / 32 +
+    w) * slice, + slice)``."""
+    threads: int
+    r: int
+    s: int
+    slice: int
+
+    @property
+    def splits(self) -> int:
+        """j-slices a row is cut into (warps of a cluster)."""
+        return self.s * self.threads // 32
+
+    def grid(self, n: int) -> int:
+        """CTAs launched for ``n`` bodies."""
+        return _cdiv(n, 32 * self.r) * self.s
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _plan(n: int, threads: int, r: int, s: int) -> Plan:
+    """``r`` rows a thread, j cut into ``s * threads / 32`` tile-aligned
+    slices, then the CTAs and warps cut to the slices that hold bodies."""
+    slice_ = _cdiv(_cdiv(n, s * threads // 32), TILE) * TILE
+    slices = _cdiv(n, slice_)
+    s = min(s, slices)
+    return Plan(32 * _cdiv(slices, s), r, s, slice_)
+
+
+@functools.cache
+def _launch_plan(n: int, sm_count: int) -> Plan:
+    """The kernel's plan for ``n >= 1`` bodies on a card of ``sm_count``
+    SMs, measured by ``scripts/pairwise_plan_sweep.py`` (the same plan is
+    the fastest or near it in f32 and f64).  Cached: a simulation asks for
+    the same N every tick.
+
+    Two rows a thread where that still gives every SM a row block, else
+    one; a cluster of two CTAs a row block where the row blocks alone would
+    leave SMs idle; then j is cut into as many slices (warps a cluster) as
+    fill the card with up to ``WARPS_PER_SM`` warps a SM in one wave."""
+    r = 2 if _cdiv(n, 64) >= sm_count else 1
+    i_blocks = _cdiv(n, 32 * r)
+    s = 1 if i_blocks >= sm_count else 2
+    splits = max(1, min(_cdiv(n, TILE), MAX_WARPS * s, WARPS_PER_SM * sm_count // i_blocks))
+    return _plan(n, 32 * _cdiv(splits, s), r, s)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("pairwise_gravity")
+    if lib.pairwise_gravity_tile() != TILE:
+        raise RuntimeError(f"pairwise_gravity.cu tiles j by {lib.pairwise_gravity_tile()} "
+                           f"bodies, ops/pairwise.py plans for {TILE}")
     for name in _LAUNCHERS.values():
         fn = getattr(lib, name)
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # pos mass out
             ctypes.c_int,  # n
             ctypes.c_double, ctypes.c_double,  # g eps2
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # the plan
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -102,25 +174,30 @@ def _check(pos, mass) -> int:
                          f"{pos.device} and {mass.device}")
     if not (pos.is_contiguous() and mass.is_contiguous()):
         raise ValueError("kernel needs contiguous tensors")
+    if pos.data_ptr() % 16 or mass.data_ptr() % 16:
+        raise ValueError("kernel needs 16-byte aligned tensors (its cp.async "
+                         "copies are 16 bytes)")
     if n >= 2**31:
         raise ValueError(f"{n} bodies out of int32 range")
     return n
 
 
-def _pairwise_gravity_cuda(pos, mass, g: float, eps: float):
+def _pairwise_gravity_cuda(pos, mass, g: float, eps: float, plan: Plan | None = None):
     """Launch csrc/pairwise_gravity.cu on ``pos``'s device and current
-    stream."""
+    stream, by ``plan`` (default: ``_launch_plan`` for the device)."""
     global LAUNCHES
     n = _check(pos, mass)
     out = torch.empty_like(pos)
     if n == 0:
         return out
     launcher = getattr(_library(), _LAUNCHERS[pos.dtype])
+    if plan is None:
+        plan = _launch_plan(n, _sm_count(pos.device.index))
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         # eps^2 formed in double, as the JAX kernel's Python float is
         err = launcher(pos.data_ptr(), mass.data_ptr(), out.data_ptr(), n,
-                       float(g), float(eps) * float(eps), stream)
+                       float(g), float(eps) * float(eps), *plan, stream)
     if err != 0:
         raise RuntimeError(f"pairwise_gravity launch failed: cudaError {err}")
     LAUNCHES += 1
@@ -139,4 +216,10 @@ def pairwise_gravity(pos, mass, g: float = 6.6743e-11, eps: float = 0.0,
         use_kernel = pos.device.type != "cpu"
     if not use_kernel:
         return pairwise_gravity_reference(pos, mass, g, eps)
-    return _pairwise_gravity_cuda(pos.contiguous(), mass.contiguous(), g, eps)
+    return _pairwise_gravity_cuda(_aligned(pos), _aligned(mass), g, eps)
+
+
+def _aligned(x):
+    """``x`` contiguous and 16-byte aligned, copied only where it is not."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x

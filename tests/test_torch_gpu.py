@@ -119,6 +119,75 @@ def test_pairwise_kernel_softened_cloud(cuda, dtype, tol):
         assert rel_err(ours, ref) <= tol
 
 
+def _cloud(n, seed, device, dtype):
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(size=(n, 3)) * 10
+    mass = rng.uniform(1, 5, n)
+    return (torch.as_tensor(pos, device=device, dtype=dtype),
+            torch.as_tensor(mass, device=device, dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 65, 127, 129, 300, 1000, 4099])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-12)])
+def test_pairwise_kernel_at_plan_boundaries(cuda, n, dtype, tol):
+    """Sizes where the launch plan's rows, slices or cluster change."""
+    pos, mass = _cloud(n, n, cuda, dtype)
+    for eps in (0.0, 0.1):
+        ours = pw.pairwise_gravity(pos, mass, g=1.0, eps=eps)
+        ref = pw.pairwise_gravity_reference(pos, mass, g=1.0, eps=eps)
+        assert torch.isfinite(ours).all()
+        if n == 1:
+            assert torch.equal(ours, torch.zeros_like(ours))
+        else:
+            assert rel_err(ours, ref) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pairwise_kernel_exact_zero_cases(cuda, dtype):
+    """d2 == 0 at a body on the origin against the tail slots, at coincident
+    bodies and at a zero mass: the remap keeps every sum finite and equal
+    to the plain version's."""
+    pos, mass = _cloud(1000, 5, cuda, dtype)
+    pos[0] = 0.0
+    pos[9] = pos[4]
+    pos[500:503] = pos[600]
+    mass[11] = 0.0
+    ours = pw.pairwise_gravity(pos, mass, g=1.0)
+    ref = pw.pairwise_gravity_reference(pos, mass, g=1.0)
+    assert torch.isfinite(ours).all()
+    assert rel_err(ours, ref) <= {torch.float32: 1e-4, torch.float64: 1e-12}[dtype]
+    # coincident bodies add exactly zero to each other, so bodies 500-502
+    # feel the same sum, to the bit
+    assert torch.equal(ours[500], ours[501]) and torch.equal(ours[501], ours[502])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pairwise_kernel_is_bitwise_deterministic(cuda, dtype):
+    pos, mass = _nbody_inputs(4099, cuda, dtype)
+    first = pw.pairwise_gravity(pos, mass, g=G)
+    for _ in range(3):
+        assert torch.equal(pw.pairwise_gravity(pos, mass, g=G), first)
+
+
+@pytest.mark.gpu
+def test_pairwise_kernel_alignment_and_refused_plans(cuda):
+    pos, mass = _cloud(300, 6, cuda, torch.float32)
+    with pytest.raises(ValueError, match="aligned"):
+        pw._pairwise_gravity_cuda(pos[1:], mass[1:], 1.0, 0.0)
+    # the public entry point copies a misaligned view
+    out = pw.pairwise_gravity(pos[1:], mass[1:], g=1.0)
+    assert rel_err(out, pw.pairwise_gravity_reference(pos[1:], mass[1:], 1.0)) <= 1e-4
+    before = pw.LAUNCHES
+    for plan in (pw.Plan(48, 1, 1, 512), pw.Plan(32, 3, 1, 512), pw.Plan(32, 1, 9, 64),
+                 pw.Plan(32, 1, 1, 100), pw.Plan(32, 1, 1, 64)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            pw._pairwise_gravity_cuda(pos, mass, 1.0, 0.0, plan)
+    assert pw.LAUNCHES == before
+
+
 @pytest.mark.gpu
 def test_pairwise_kernel_empty_and_contract(cuda):
     before = pw.LAUNCHES

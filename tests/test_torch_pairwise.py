@@ -131,3 +131,50 @@ def test_kernel_wrapper_checks_before_loading(monkeypatch):
         with pytest.raises(exc, match=match):
             pw._pairwise_gravity_cuda(*args, 1.0, 0.0)
     assert pw._library.cache_info().currsize == 0
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch plan (``_launch_plan``), held on the CPU: the C
+# launcher takes the plan as it is given
+# ---------------------------------------------------------------------------
+
+PLAN_SIZES = [1, 2, 31, 63, 64, 65, 127, 129, 300, 1000, 1024, 4096, 4099, 8192,
+              16384, 65536]
+
+
+@pytest.mark.parametrize("sm_count", [1, 132])
+@pytest.mark.parametrize("n", PLAN_SIZES)
+def test_launch_plan_covers_rows_and_columns_once(n, sm_count):
+    plan = pw._launch_plan(n, sm_count)
+    # within the kernel's limits (the launcher refuses anything else)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 32 * pw.MAX_WARPS
+    assert plan.r in (1, 2) and 1 <= plan.s <= pw.MAX_CLUSTER
+    assert plan.slice >= pw.TILE and plan.slice % pw.TILE == 0
+    assert plan.grid(n) % plan.s == 0 and plan.grid(n) <= 2**31 - 1
+    assert plan.threads // 32 * 8 * pw.TILE * 8 <= 227 * 1024  # f64 shared memory
+    # rows: lane l of every warp of cluster q holds i = 32 (q r + k) + l
+    rows = np.arange(plan.grid(n) // plan.s * plan.r * 32)
+    assert np.array_equal(np.bincount(rows[rows < n], minlength=n), np.ones(n, int))
+    # columns: warp w of CTA rank k sweeps [(k W + w) slice, + slice)
+    covered = np.zeros(n, int)
+    for split in range(plan.splits):
+        covered[split * plan.slice:(split + 1) * plan.slice] += 1
+    assert np.array_equal(covered, np.ones(n, int))
+    # every CTA of a cluster has bodies to sweep
+    assert (plan.s - 1) * (plan.threads // 32) * plan.slice < n
+
+
+def test_launch_plan_at_the_main_path_width():
+    """The plan measured fastest at 16384 bodies on a 132-SM card (f32 and
+    f64): 16 warps a CTA, two rows a thread, j cut over the warps alone."""
+    assert pw._launch_plan(16384, 132) == pw.Plan(threads=512, r=2, s=1, slice=1024)
+    assert pw._launch_plan(4096, 132) == pw.Plan(threads=512, r=1, s=2, slice=128)
+
+
+def test_misaligned_inputs_are_copied_for_the_kernel():
+    pos = torch.arange(30.0).reshape(10, 3)
+    view = pos[1:]
+    assert view.data_ptr() % 16
+    out = pw._aligned(view)
+    assert out.data_ptr() % 16 == 0 and torch.equal(out, view)
+    assert pw._aligned(pos) is pos
