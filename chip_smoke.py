@@ -96,7 +96,43 @@ The falcon9 RTLS Monte Carlo campaign (eager PyTorch ops under
     (25 single ticks), sample-ticks/s, the projected full-mission wall, the
     device trace and a cProfile of 20 ticks each.
 
-14. a JSON line of the kernels (time, plain version's time and bound at
+The rocket, three-body and landing Monte Carlo examples (eager PyTorch
+ops; no hand kernel: before each of phases 14-18 both kernels' launch
+counts are set to 0, and each must read 0 after it), in f64.  The CPU
+runs that phases 17 and 18 compare against go on in two worker processes
+while the verify runs of phases 14-16 take place, and are collected
+before phase 17; no worker runs during a timed run:
+
+14. three-body (``examples.three_body``) through ``regress.check``:
+    ``World.build(device="cuda", simulation_rate=120)``, ``Exec.run(240)``
+    (timed), ``save_archive(dir, "csv")``, then every column of
+    ``scripts/baseline/three-body`` held by ``regress.compare`` (vector
+    cells parsed as lists; abs or rel 1e-4 from
+    ``scripts/baseline/tolerances.json``; a missing file or column or a
+    row count other than 241 fails); later, with the workers started,
+    ``verify_trajectory``, the card against the CPU, 100 ticks,
+    allclose(1e-6, 1e-6).
+15. the rocket (``examples.rocket.main``), one entity: the same two checks
+    against ``scripts/baseline/rocket``.
+16. falcon9 without sensors (``build(None, sensors=False)``) through
+    ``verify_trajectory``, the card against the CPU, 100 ticks,
+    allclose(1e-6, 1e-6).
+17. the batched rocket (``examples.rocket.batched``): 1024 rockets x 240
+    ticks through ``BatchedCampaign``.  Every column finite, the 1024
+    samples bitwise equal to each other (no overrides), the first 8 equal
+    to the port's run on the CPU (the first worker) to ≤ 1e-9 per channel
+    group; then entity-steps/s, ms/tick, the device trace of 2 ticks and
+    a cProfile of 20 ticks.
+18. the landing Monte Carlo (``examples.monte_carlo.batched``), the whole
+    campaign: 10000 samples x 2400 ticks, LHS seed 0.  Every column
+    finite; the landed and soft fractions within 5 samples of the JAX
+    package's run of the same campaign (``JAX_MC_*``); the first 64
+    samples' touchdown velocity and final state equal to the port's run on
+    the CPU from the same draws (the second worker) to ≤ 1e-9 per channel
+    group, with the same landed and soft flags; then wall, rollouts/s,
+    sample-ticks/s, the device trace and a cProfile of 20 ticks.
+
+19. a JSON line of the kernels (time, plain version's time and bound at
     the main path's width, launches on the main path; no PyTorch call
     computes either function, so ``library_ms`` is null), then the last
     line ``{"ok": true, "device": {...}}``.
@@ -104,13 +140,14 @@ The falcon9 RTLS Monte Carlo campaign (eager PyTorch ops under
 
 import cProfile
 import json
+import multiprocessing
 import os
 import pstats
 import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -158,6 +195,23 @@ SIXDOF_TICK_SFU = 4 + 9 + 4
 # DOWN, and the first tick at which a sample is in DESCENT (guidance at
 # full rate from then on)
 JAX_F9_SAMPLES, JAX_F9_ALL_DOWN_TICK, JAX_F9_FIRST_DESCENT_TICK = 1024, 54400, 34300
+VERIFY_TICKS = 100
+ROCKETS, ROCKET_TICKS, ROCKET_CPU_SAMPLES, EX_TOL = 1024, 240, 8, 1e-9
+# ticks of the batched rocket's device trace: ~3000 device ops a tick, and
+# the profiler's post-processing grows with the events
+ROCKET_TRACE_TICKS = 2
+MC_SAMPLES, MC_TICKS, MC_CPU_SAMPLES, MC_FRAC_SLACK = 10000, 2400, 64, 5
+# the JAX package's landing campaign, examples/monte-carlo/batched.py
+# run_campaign(10000, 2400, seed=0), run on a CPU (JAX_PLATFORMS=cpu, f64)
+JAX_MC_LANDED_FRAC, JAX_MC_SOFT_FRAC = 0.9759, 0.9401
+
+
+_START = time.perf_counter()
+
+
+def _clock(label):
+    """Print the seconds since the script started, after ``label``."""
+    print(f"[{time.perf_counter() - _START:.1f} s] {label} done")
 
 
 def _time_ms(fn, reps=3, calls=1):
@@ -764,6 +818,237 @@ def _falcon9(el):
                   f"run({TRACE_TICKS}))", lambda: campaign.run(TRACE_TICKS), TRACE_TICKS)
 
 
+def _no_launches(label, fn):
+    """fn() with both kernels' launch counts set to 0 just before it;
+    raises unless both read 0 just after."""
+    from elodin_tpu_torch.ops import pairwise as pw
+    from elodin_tpu_torch.ops import sixdof_kernel as sk
+
+    sk.LAUNCHES = pw.LAUNCHES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {"sixdof_rk4": sk.LAUNCHES, "pairwise_gravity": pw.LAUNCHES}
+    print(f"{label}: hand-kernel launches {launches} (the path has none)")
+    if any(launches.values()):
+        raise AssertionError(f"{label} launched a hand kernel: {launches}")
+    return out
+
+
+def _errors_by_group(ours, ref):
+    """max |Δ| / max |ref| of every float column of two dicts of numpy
+    columns, per channel group of a (..., 7) or (..., 6) trailing axis and
+    as one group otherwise (max |Δ| where the reference is all zero)."""
+    groups = {7: (("quaternion", slice(0, 4)), ("translation", slice(4, 7))),
+              6: (("angular", slice(0, 3)), ("linear", slice(3, 6)))}
+    out = {}
+    for name, r in ref.items():
+        r = np.asarray(r)
+        if r.dtype.kind != "f":
+            continue
+        o, r = np.asarray(ours[name], dtype=np.float64), r.astype(np.float64)
+        for group, idx in groups.get(r.shape[-1], ()) or (("all", slice(None)),):
+            d, scale = np.abs(o[..., idx] - r[..., idx]).max(), np.abs(r[..., idx]).max()
+            out[f"{name}.{group}"] = float(d / scale if scale > 0.0 else d)
+    return out
+
+
+def _hold(label, errs, tol):
+    worst = max(errs, key=errs.get)
+    print(f"{label}: worst max|Δ|/max|ref| {errs[worst]:.3e} at {worst} (tol {tol:g}); "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(errs.items(), key=lambda kv: -kv[1])[:4]))
+    if not errs[worst] <= tol:
+        raise AssertionError(f"{label}: {worst} {errs[worst]:.3e} exceeds {tol:g}")
+
+
+def _verify(label, world, system, rate):
+    """verify_trajectory, the card against the CPU (its default devices),
+    VERIFY_TICKS ticks at allclose(1e-6, 1e-6); prints the difference."""
+    from elodin_tpu_torch import verify
+
+    t0 = time.perf_counter()
+    report = _no_launches(f"{label} verify_trajectory", lambda: verify.verify_trajectory(
+        world, system, ticks=VERIFY_TICKS, simulation_rate=rate))
+    summary = report.pop("_summary")
+    worst = sorted(report.items(), key=lambda kv: -kv[1]["metric_rel"])[:3]
+    print(f"{label} verify_trajectory ({summary['devices'][1]} vs {summary['devices'][0]}, "
+          f"{summary['ticks']} ticks, {time.perf_counter() - t0:.2f} s): max|Δ| "
+          f"{summary['max_abs']:.3e}, max |Δ|/(1+|x|) {summary['metric_rel']:.3e}, max "
+          f"relative {summary['max_rel']:.3e}, largest excess over 1e-6 * scale "
+          f"{summary['max_excess']:.3e} (allclose atol 1e-6 passes); by column: "
+          + ", ".join(f"{k} {v['metric_rel']:.2e}" for k, v in worst))
+
+
+def _baselined(el, example):
+    """The first part of phases 14 and 15: one of the baselined examples
+    through Exec on the card and its CSV archive against scripts/baseline
+    (``regress.check``, which raises on a failure)."""
+    from elodin_tpu_torch import regress
+
+    el.set_float_policy("f64")
+    exec_, wall, n, share = _no_launches(f"{example} regress.check",
+                                         lambda: regress.check(example, device="cuda"))
+    if exec_.cols["world_pos"].device.type != "cuda" or exec_.tick() != regress.TICKS:
+        raise AssertionError(f"{example}: not run on the card to tick {regress.TICKS}")
+    print(f"{example} on the card (f64, Exec.run({regress.TICKS}) {wall:.3f} s, "
+          f"{wall / regress.TICKS * 1e3:.4g} ms/tick): {n} baselined CSV files of "
+          f"scripts/baseline/{example}, vector cells parsed, 0 failures; the closest "
+          f"element used {share:.3g} of its tolerance (abs or rel 1e-4)")
+
+
+def _rocket_cpu_reference(n, ticks):
+    """The batched rocket's ``n`` samples on the CPU, run in a worker
+    process: (final columns, seconds)."""
+    import elodin_tpu_torch as el
+    from elodin_tpu_torch.examples.rocket import batched as rkb
+
+    torch.set_num_threads(1)
+    el.set_float_policy("f64")
+    t0 = time.perf_counter()
+    result = rkb.make_campaign(n, device="cpu").run(ticks)
+    return {k: result.column(k) for k in result.final}, time.perf_counter() - t0
+
+
+def _landing_cpu_reference(draws, ticks):
+    """The landing campaign from ``draws`` on the CPU, run in a worker
+    process: (final columns, scores, seconds)."""
+    import elodin_tpu_torch as el
+    from elodin_tpu_torch.examples.monte_carlo import batched as mc
+    from elodin_tpu_torch.monte_carlo import BatchedCampaign
+
+    torch.set_num_threads(1)
+    el.set_float_policy("f64")
+    t0 = time.perf_counter()
+    world, system = mc.build(None)
+    result = BatchedCampaign(world, system, len(draws["dry_mass"]), mc.overrides_of(draws),
+                             simulation_rate=mc.SIMULATION_RATE_HZ, device="cpu").run(ticks)
+    return ({k: result.column(k) for k in result.final}, mc.scores(result),
+            time.perf_counter() - t0)
+
+
+def _examples(el):
+    """Phases 14-18: the rocket, three-body and landing Monte Carlo
+    examples and falcon9 through verify (no hand kernel)."""
+    from elodin_tpu_torch import regress
+    from elodin_tpu_torch.examples.falcon9 import sim as f9_sim
+    from elodin_tpu_torch.examples.monte_carlo import batched as mc
+
+    # 14-15. the baselined examples through Exec and the CSV gate
+    for example in ("three-body", "rocket"):
+        _baselined(el, example)
+    _clock("phases 14-15, Exec and the CSV gate")
+
+    # the CPU references of phases 17-18 run in two workers while the
+    # verify runs (phases 14-16) take place; none runs in a timed run
+    draws = {k: v[:MC_CPU_SAMPLES] for k, v in mc.dispersions(MC_SAMPLES, seed=0).items()}
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        rocket_cpu = pool.submit(_rocket_cpu_reference, ROCKET_CPU_SAMPLES, ROCKET_TICKS)
+        landing_cpu = pool.submit(_landing_cpu_reference, draws, MC_TICKS)
+        for example in ("three-body", "rocket"):
+            mod = regress.baselined_examples()[example]
+            _verify(example, mod.build_world(), mod.build_system(), 1.0 / mod.SIM_TIME_STEP)
+        # 16. falcon9 without sensors through verify
+        el.set_float_policy("f64")
+        world, system = f9_sim.build(None, sensors=False)
+        _verify("falcon9 (build(None, sensors=False); the JAX bench's leg has sensors, "
+                "which are not ported)", world, system, f9_sim.SIM_RATE_HZ)
+        _clock("phases 14-16, verify")
+        t1 = time.perf_counter()
+        rocket_ref, landing_ref = rocket_cpu.result(), landing_cpu.result()
+    print(f"CPU references of phases 17-18 (two workers, {time.perf_counter() - t0:.2f} s "
+          f"after they were submitted, {time.perf_counter() - t1:.2f} s of it waited for after "
+          f"the verify runs)")
+
+    _batched_rocket(el, rocket_ref)
+    _clock("phase 17")
+    _landing(el, landing_ref)
+    _clock("phase 18")
+
+
+def _batched_rocket(el, cpu_ref):
+    """Phase 17: the batched rocket at 1024 x 240 against its samples on
+    the CPU (``cpu_ref``: final columns and the CPU run's seconds)."""
+    from elodin_tpu_torch.examples.rocket import batched as rkb
+
+    el.set_float_policy("f64")
+    campaign = rkb.make_campaign(ROCKETS, device="cuda")
+    result = _no_launches(f"batched rocket run({ROCKET_TICKS})",
+                          lambda: campaign.run(ROCKET_TICKS))
+    final = {k: result.column(k) for k in result.final}
+    spread = 0.0
+    for k, v in final.items():
+        if not np.isfinite(v.astype(np.float64)).all():
+            raise AssertionError(f"batched rocket column {k} is not finite")
+        if not np.array_equal(v, np.broadcast_to(v[:1], v.shape)):
+            d = np.abs(v.astype(np.float64) - v[:1]).max()
+            spread = max(spread, d / max(np.abs(v[:1].astype(np.float64)).max(), 1e-300))
+    print(f"batched rocket ({ROCKETS} rockets x {ROCKET_TICKS} ticks, f64): "
+          f"{result.wall_seconds:.3f} s, {result.wall_seconds / ROCKET_TICKS * 1e3:.4g} ms/tick, "
+          f"{ROCKETS * ROCKET_TICKS / result.wall_seconds:.4g} entity-steps/s; every column "
+          f"finite; the {ROCKETS} samples "
+          + ("bitwise equal" if spread == 0.0 else f"differ by up to {spread:.3e} of max |x|"))
+    if spread > 1e-15:
+        raise AssertionError(f"batched rocket samples differ by {spread:.3e}")
+    cpu, cpu_s = cpu_ref
+    _hold(f"batched rocket card vs CPU, first {ROCKET_CPU_SAMPLES} samples x {ROCKET_TICKS} ticks "
+          f"(CPU run {cpu_s:.2f} s)",
+          _errors_by_group({k: v[:ROCKET_CPU_SAMPLES] for k, v in final.items()}, cpu), EX_TOL)
+    _trace_and_profile(f"batched rocket ({ROCKETS} rockets, f64", campaign, ROCKET_TRACE_TICKS)
+
+
+def _landing(el, cpu_ref):
+    """Phase 18: the whole landing campaign, 10000 x 2400, against the JAX
+    package's outcome and its first samples on the CPU (``cpu_ref``: final
+    columns, scores and the CPU run's seconds)."""
+    from elodin_tpu_torch.examples.monte_carlo import batched as mc
+
+    el.set_float_policy("f64")
+    t0 = time.perf_counter()
+    campaign, _ = mc.make_campaign(MC_SAMPLES, seed=0, device="cuda")
+    setup_s = time.perf_counter() - t0
+    result = _no_launches(f"landing campaign run({MC_TICKS})", lambda: campaign.run(MC_TICKS))
+    out, scores = mc.outcome(result), mc.scores(result)
+    final = {k: result.column(k) for k in result.final}
+    for k, v in final.items():
+        if not np.isfinite(v.astype(np.float64)).all():
+            raise AssertionError(f"landing campaign column {k} is not finite")
+    print(f"landing campaign ({MC_SAMPLES} samples x {MC_TICKS} ticks, f64, LHS seed 0): set-up "
+          f"{setup_s:.3f} s, wall {result.wall_seconds:.3f} s, "
+          f"{result.wall_seconds / MC_TICKS * 1e3:.4g} ms/tick, "
+          f"{result.rollouts_per_second:.4g} rollouts/s, "
+          f"{MC_SAMPLES * result.ticks / result.wall_seconds:.4g} sample-ticks/s; outcome "
+          + json.dumps({k: out[k] for k in ("landed_frac", "soft_landing_frac",
+                                            "mean_touchdown_vz", "mean_landing_offset_m")}))
+    for key, ref in (("landed_frac", JAX_MC_LANDED_FRAC), ("soft_landing_frac", JAX_MC_SOFT_FRAC)):
+        off = round(abs(out[key] - ref) * MC_SAMPLES)
+        print(f"  {key} {out[key]} against the JAX package's {ref}: {off} samples apart "
+              f"(at most {MC_FRAC_SLACK})")
+        if off > MC_FRAC_SLACK:
+            raise AssertionError(f"landing campaign {key} {out[key]} vs JAX {ref}")
+    n = MC_CPU_SAMPLES
+    cpu, cpu_scores, cpu_s = cpu_ref
+    for flag in ("landed", "soft"):
+        if not np.array_equal(scores[flag][:n], cpu_scores[flag]):
+            raise AssertionError(f"landing campaign: {flag} flags differ from the CPU's")
+    errs = _errors_by_group({k: v[:n] for k, v in final.items()}, cpu)
+    errs["touchdown_vz (scores)"] = _errors_by_group(
+        {"v": scores["touchdown_vz"][:n]}, {"v": cpu_scores["touchdown_vz"]})["v.all"]
+    _hold(f"landing campaign card vs CPU, first {n} samples x {MC_TICKS} ticks from the same "
+          f"draws (CPU run {cpu_s:.2f} s; landed and soft flags equal)", errs, EX_TOL)
+    _trace_and_profile(f"landing campaign ({MC_SAMPLES} samples, f64", campaign)
+
+
+def _trace_and_profile(label, campaign, trace_ticks=TRACE_TICKS):
+    """The device trace of ``trace_ticks`` ticks of a campaign, then a
+    cProfile of TRACE_TICKS ticks."""
+    ops, busy, wall = _device_trace(lambda: campaign.run(trace_ticks))
+    print(f"device trace, {label}, run({trace_ticks})): {ops / trace_ticks:.1f} device ops/tick, "
+          f"device busy {busy / trace_ticks:.4g} ms/tick, wall {wall / trace_ticks:.4g} ms/tick, "
+          f"idle share {1 - busy / wall:.2%}")
+    _host_profile(f"host profile, {label}, run({TRACE_TICKS}))",
+                  lambda: campaign.run(TRACE_TICKS), TRACE_TICKS)
+
+
 def _f9_projection(gated_ms, plain_ms, ticks, every):
     """Seconds for ``ticks`` ticks: guidance on 1 tick in ``every`` until
     the first sample reaches DESCENT, on every tick after."""
@@ -801,14 +1086,20 @@ def main() -> int:
     for name in ("sixdof_rk4", "pairwise_gravity"):
         print(_build.build_log(name).strip())
 
-    kernels = [_sixdof(el, interop), _nbody(el, interop)]
+    _clock("phases 1-2")
+    kernels = [_sixdof(el, interop)]
+    _clock("phases 3-6")
+    kernels.append(_nbody(el, interop))
+    _clock("phases 7-12")
     _falcon9(el)
+    _clock("phase 13")
+    _examples(el)
 
     if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
            for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
 
-    # 14. results
+    # 19. results
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from ...ops.interp import interp
-from ._consts import const, f64
+from .._consts import const, f64
 from .constants import S_REF_M2, STAGE1_LENGTH_M, STAGE1_RADIUS_M
 
 # One Mach grid for every table in the bank.

@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._consts import const, f64
+from .._consts import const, f64
 
 G0 = 9.80665
 R_UNIV = 8.31432  # J / (mol K)

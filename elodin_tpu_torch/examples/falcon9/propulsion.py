@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ._consts import f64
+from .._consts import f64
 from .constants import (
     ENGINE_A_E_M2,
     ENGINE_ISP_VAC_S,

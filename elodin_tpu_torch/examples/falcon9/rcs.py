@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._consts import const, f64
+from .._consts import const, f64
 from .constants import RCS_STATION_M, RCS_THRUST_PER_THRUSTER_N, STAGE1_RADIUS_M
 
 N_RCS = 8

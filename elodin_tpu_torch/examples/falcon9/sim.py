@@ -29,7 +29,7 @@ from . import atmosphere
 from . import propulsion as prop_mod
 from . import rcs as rcs_mod
 from . import zemzev
-from ._consts import const
+from .._consts import const
 from .constants import (
     ENGINE_A_E_M2,
     ENGINE_SHUTDOWN_TAU_S,

@@ -12,7 +12,7 @@ import math
 import numpy as np
 import torch
 
-from ._consts import const, f64
+from .._consts import const, f64
 
 G = 9.81
 WAYPOINT_ALT_M = 150.0

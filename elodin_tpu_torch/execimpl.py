@@ -105,6 +105,17 @@ class History:
         parts = list(self._spills[name]) + self.chunks[name]
         return np.concatenate(parts, axis=0)
 
+    def column_names(self) -> list[str]:
+        """Every 'entity.component' of a named entity."""
+        out = []
+        id_to_name = {eid: m.name for eid, m in self.meta.entity_metadata.items()}
+        for comp, ids in self.meta.comp_entities.items():
+            for eid in ids:
+                ename = id_to_name.get(eid)
+                if ename is not None:
+                    out.append(f"{ename}.{comp}")
+        return out
+
     def resolve(self, qualified: str) -> tuple[str, int]:
         """'entity.component' -> (component name, row index)."""
         entity_name, _, comp = qualified.partition(".")
@@ -267,3 +278,20 @@ class Exec:
         except ImportError:
             return df
         return df.to_polars()
+
+    def save_archive(self, path, format: str = "csv") -> None:
+        """Write every 'entity.component' series to ``path/<name>.csv``
+        (``DataFrame.write_csv``: a time column, vector cells as lists).
+        Parquet and Arrow need pyarrow, which the port does not use yet."""
+        import pathlib
+
+        if format in ("parquet", "pq", "arrow", "arrow_ipc"):
+            raise NotImplementedError(
+                f"save_archive format {format!r} needs pyarrow and is not ported; "
+                "use 'csv'")
+        if format != "csv":
+            raise ValueError(f"unknown archive format {format!r}")
+        out = pathlib.Path(path)
+        out.mkdir(parents=True, exist_ok=True)
+        for name in self._history.column_names():
+            self.history_frame([name]).write_csv(out / f"{name}.csv")

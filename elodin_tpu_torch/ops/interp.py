@@ -8,6 +8,10 @@ with ``side='right'``), the values beyond either end are clamped to the
 end values, and at a duplicate knot (a step) the value past the step
 applies from the knot on.  Written with elementwise ops and an index
 gather, so it runs under ``torch.func.vmap``.
+
+``lerp_nd`` is the multilinear lookup of ``map_coordinates(order=1,
+mode="nearest")`` at one point of a small grid, in the JAX package's form:
+a contraction of per-axis hat weights against the table.
 """
 
 from __future__ import annotations
@@ -33,3 +37,27 @@ def interp(x, xp, fp) -> torch.Tensor:
     f = torch.where(dx0, fp[i - 1], fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
     f = torch.where(x < xp[0], fp[0], f)
     return torch.where(x > xp[-1], fp[-1], f)
+
+
+def _hat_weights(coord, n: int, dtype) -> torch.Tensor:
+    """Linear-interpolation weights over ``n`` grid indices for the
+    fractional index ``coord``, clamped to the grid (``map_coordinates``
+    with ``order=1, mode='nearest'``)."""
+    coord = (coord.to(dtype) if isinstance(coord, torch.Tensor)
+             else torch.tensor(coord, dtype=dtype))
+    c = torch.clamp(coord, 0.0, n - 1.0)
+    idx = torch.arange(n, dtype=dtype, device=c.device)
+    return torch.clamp(1.0 - torch.abs(c - idx), min=0.0)
+
+
+def lerp_nd(table, coords) -> torch.Tensor:
+    """Multilinear lookup of ``table`` (shape ``dims``, on the device of
+    the coordinates) at one fractional index per axis (``coords``,
+    scalars), clamped to the grid: each axis's hat weights contract the
+    table's leading axis in turn.  A batch axis may come from
+    ``torch.func.vmap``.  Returns a scalar."""
+    out = torch.as_tensor(table)
+    for c in coords:
+        w = _hat_weights(c, out.shape[0], out.dtype)
+        out = torch.tensordot(w, out, dims=([0], [0]))
+    return out

@@ -86,6 +86,20 @@ def quat_from_axis_angle(axis, angle) -> Tensor:
     return _concat_bcast(axis * torch.sin(half)[..., None], torch.cos(half)[..., None])
 
 
+def quat_from_euler(angles) -> Tensor:
+    """Roll/pitch/yaw (XYZ intrinsic) to quaternion."""
+    angles = _as_f(angles)
+    roll, pitch, yaw = angles.unbind(-1)
+    cr, sr = torch.cos(roll / 2), torch.sin(roll / 2)
+    cp, sp = torch.cos(pitch / 2), torch.sin(pitch / 2)
+    cy, sy = torch.cos(yaw / 2), torch.sin(yaw / 2)
+    w = cr * cp * cy + sr * sp * sy
+    x = sr * cp * cy - cr * sp * sy
+    y = cr * sp * cy + sr * cp * sy
+    z = cr * cp * sy - sr * sp * cy
+    return torch.stack([x, y, z, w], dim=-1)
+
+
 def quat_normalize(q: Tensor) -> Tensor:
     return q * torch.rsqrt(torch.sum(q * q, dim=-1, keepdim=True))
 
@@ -215,6 +229,10 @@ class Quaternion(_SpatialBase):
     def from_axis_angle(axis, angle) -> "Quaternion":
         return Quaternion.from_array(quat_from_axis_angle(axis, angle))
 
+    @staticmethod
+    def from_euler(angles) -> "Quaternion":
+        return Quaternion.from_array(quat_from_euler(angles))
+
     def vector(self) -> Tensor:
         return self.inner
 
@@ -275,6 +293,10 @@ class SpatialTransform(_SpatialBase):
     @staticmethod
     def from_axis_angle(axis, angle) -> "SpatialTransform":
         return SpatialTransform(angular=Quaternion.from_axis_angle(axis, angle))
+
+    @staticmethod
+    def zero() -> "SpatialTransform":
+        return SpatialTransform()
 
     def __add__(self, rhs):
         if isinstance(rhs, SpatialTransform):

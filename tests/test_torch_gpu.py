@@ -17,7 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from elodin_tpu_torch import verify
 from elodin_tpu_torch.examples.falcon9 import batched as f9
+from elodin_tpu_torch.examples.monte_carlo import batched as landing
+from elodin_tpu_torch.examples.rocket import batched as rocket_batched
+from elodin_tpu_torch.examples.three_body import main as three_body
 from elodin_tpu_torch.models.nbody import G, build_nbody
 from elodin_tpu_torch.models.sixdof_batch import batched_sixdof_init
 from elodin_tpu_torch.ops import pairwise as pw
@@ -238,3 +242,56 @@ def test_falcon9_campaign_on_the_card_matches_the_cpu(cuda):
     errs = f9.state_errors(ours, ref)
     assert max(errs.values()) <= 1e-9, sorted(errs.items(), key=lambda kv: -kv[1])[:3]
     np.testing.assert_array_equal(gpu.history["world_pos"][-1], ours["world_pos"])
+
+
+# ---------------------------------------------------------------------------
+# the rocket, landing and three-body examples (eager PyTorch ops, no hand
+# kernel)
+#
+# Stated tolerance, f64: ≤ 1e-9 per channel group after the run, the
+# landed and soft flags identical; verify_trajectory's allclose(1e-6,
+# 1e-6), the card against the CPU.
+# ---------------------------------------------------------------------------
+
+
+def _campaign_errors(gpu, cpu):
+    out = {}
+    for k in cpu.final:
+        r = cpu.column(k)
+        if r.dtype.kind == "f":
+            out[k] = rel_err(gpu.column(k), r)
+        else:
+            np.testing.assert_array_equal(gpu.column(k), r, err_msg=k)
+    return out
+
+
+@pytest.mark.gpu
+def test_rocket_campaign_on_the_card_matches_the_cpu(cuda):
+    results = {str(d): rocket_batched.make_campaign(64, device=d).run(120) for d in (cuda, "cpu")}
+    gpu, cpu = results[str(cuda)], results["cpu"]
+    assert gpu.final["world_pos"].device.type == "cuda"
+    errs = _campaign_errors(gpu, cpu)
+    assert max(errs.values()) <= 1e-9, sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+
+
+@pytest.mark.gpu
+def test_landing_campaign_on_the_card_matches_the_cpu(cuda):
+    results = {}
+    for d in (cuda, "cpu"):
+        campaign, _ = landing.make_campaign(256, seed=3, device=d)
+        results[str(d)] = campaign.run(2400)
+    gpu, cpu = results[str(cuda)], results["cpu"]
+    ours, ref = landing.scores(gpu), landing.scores(cpu)
+    np.testing.assert_array_equal(ours["landed"], ref["landed"])
+    np.testing.assert_array_equal(ours["soft"], ref["soft"])
+    assert ours["landed"].mean() > 0.9
+    errs = _campaign_errors(gpu, cpu)
+    assert max(errs.values()) <= 1e-9, sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+
+
+@pytest.mark.gpu
+def test_verify_trajectory_three_body_card_vs_cpu(cuda):
+    report = verify.verify_trajectory(three_body.build_world(), three_body.build_system(),
+                                      ticks=100, simulation_rate=120.0)
+    assert report["_summary"]["devices"] == ["cpu", "cuda"]
+    assert report["_summary"]["metric_rel"] <= 1e-12

@@ -20,6 +20,13 @@ PORT_MODULES = [
     "elodin_tpu_torch.monte_carlo",
     "elodin_tpu_torch.examples.falcon9.sim",
     "elodin_tpu_torch.examples.falcon9.batched",
+    "elodin_tpu_torch.examples.three_body.main",
+    "elodin_tpu_torch.examples.rocket.main",
+    "elodin_tpu_torch.examples.rocket.batched",
+    "elodin_tpu_torch.examples.monte_carlo.sim",
+    "elodin_tpu_torch.examples.monte_carlo.batched",
+    "elodin_tpu_torch.verify",
+    "elodin_tpu_torch.regress",
 ]
 
 

@@ -64,26 +64,46 @@ def rel_err(ours, ref) -> float:
     return max(rel_errs(ours, ref).values())
 
 
-def jax_falcon9(name: str):
-    """``examples/falcon9/<name>.py`` of the JAX package, loaded under the
-    key ``f9_<name>`` (as ``tests/test_falcon9.py`` loads it), with the
-    example's directory on ``sys.path`` while it runs so that its own plain
-    imports resolve."""
+def jax_example(example: str, module: str, key: str | None = None, modules=None):
+    """``examples/<example>/<module>.py`` of the JAX package, loaded once
+    under ``key`` (by default ``jax_<example>_<module>``), with the
+    example's directory on ``sys.path``, its top-level ``w.run``
+    suppressed (``ELODIN_SKIP_RUN``) and ``modules`` in ``sys.modules``
+    while it runs, so that its own plain imports resolve."""
     import importlib.util
     import os
     import sys
 
-    key = f"f9_{name}"
+    key = key or f"jax_{example.replace('-', '_')}_{module}"
     if key in sys.modules:
         return sys.modules[key]
-    f9_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                          "examples", "falcon9")
-    sys.path.insert(0, f9_dir)
+    ex_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "examples", example)
+    saved_env = os.environ.get("ELODIN_SKIP_RUN")
+    saved = {k: sys.modules.get(k) for k in modules or {}}
+    os.environ["ELODIN_SKIP_RUN"] = "1"
+    sys.path.insert(0, ex_dir)
+    sys.modules.update(modules or {})
     try:
-        spec = importlib.util.spec_from_file_location(key, os.path.join(f9_dir, f"{name}.py"))
+        spec = importlib.util.spec_from_file_location(key, os.path.join(ex_dir, f"{module}.py"))
         mod = importlib.util.module_from_spec(spec)
         sys.modules[key] = mod
         spec.loader.exec_module(mod)
         return mod
     finally:
         sys.path.pop(0)
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+        if saved_env is None:
+            os.environ.pop("ELODIN_SKIP_RUN", None)
+        else:
+            os.environ["ELODIN_SKIP_RUN"] = saved_env
+
+
+def jax_falcon9(name: str):
+    """``examples/falcon9/<name>.py`` of the JAX package under the key
+    ``f9_<name>`` (as ``tests/test_falcon9.py`` loads it)."""
+    return jax_example("falcon9", name, key=f"f9_{name}")
