@@ -132,7 +132,31 @@ before phase 17; no worker runs during a timed run:
     group, with the same landed and soft flags; then wall, rollouts/s,
     sample-ticks/s, the device trace and a cProfile of 20 ticks.
 
-19. a JSON line of the kernels (time, plain version's time and bound at
+The drone and the cube-sat, single-entity interactive sims (eager PyTorch
+ops; no hand kernel: both kernels' launch counts are set to 0 before each
+of phases 19-22 and must read 0 after it), in f64; no CPU worker runs
+beside any of them:
+
+19. the drone (``examples.drone``, noise on) and the cube-sat
+    (``examples.cube_sat``) through ``regress.check``: ``World.build(
+    device="cuda", simulation_rate=120)``, ``Exec.run(240)``, the CSV
+    archive against their re-exported baselines (``regress.REEXPORTED``:
+    the JAX examples fail ``scripts/baseline``, which predates them), every
+    column, vector cells included, abs or rel 1e-4.
+20. both through ``verify_trajectory``, the card against the CPU, 100
+    ticks, allclose(1e-6, 1e-6): max |Δ|/(1+|x|) and the worst columns.
+21. the real-time factor (simulated seconds over wall seconds) of each,
+    built as ``bench.py``'s RTF leg builds it (``SIMULATION_RATE`` or ``1 /
+    SIM_TIME_STEP``, no history), run ``RTF_TICKS`` ticks (drone 1200 at
+    300 Hz, cube-sat 240 at 120 Hz) after a 30-tick warm-up,
+    ``RTF_REPEATS`` times on the card and as often on the CPU with the same
+    port: the median, min and max, and ms per tick.
+22. the device trace of each on the card (device ops per tick, busy time,
+    idle share) and a cProfile of the host.
+23. the card count and whether ``pyarrow`` imports (``Exec.save_archive``'s
+    Parquet and Arrow need it; no phase does).
+
+24. a JSON line of the kernels (time, plain version's time and bound at
     the main path's width, launches on the main path; no PyTorch call
     computes either function, so ``library_ms`` is null), then the last
     line ``{"ok": true, "device": {...}}``.
@@ -201,6 +225,11 @@ ROCKETS, ROCKET_TICKS, ROCKET_CPU_SAMPLES, EX_TOL = 1024, 240, 8, 1e-9
 # the profiler's post-processing grows with the events
 ROCKET_TRACE_TICKS = 2
 MC_SAMPLES, MC_TICKS, MC_CPU_SAMPLES, MC_FRAC_SLACK = 10000, 2400, 64, 5
+# bench.py's RTF run lengths of the single-entity sims, and the repeats
+RTF_TICKS = {"drone": 1200, "cube-sat": 240}
+RTF_REPEATS = 3
+RTF_WARMUP_TICKS = 30
+SINGLE_TRACE_TICKS = 10
 # the JAX package's landing campaign, examples/monte-carlo/batched.py
 # run_campaign(10000, 2400, seed=0), run on a CPU (JAX_PLATFORMS=cpu, f64)
 JAX_MC_LANDED_FRAC, JAX_MC_SOFT_FRAC = 0.9759, 0.9401
@@ -879,9 +908,9 @@ def _verify(label, world, system, rate):
 
 
 def _baselined(el, example):
-    """The first part of phases 14 and 15: one of the baselined examples
-    through Exec on the card and its CSV archive against scripts/baseline
-    (``regress.check``, which raises on a failure)."""
+    """The first part of phases 14, 15 and 19: one of the baselined
+    examples through Exec on the card and its CSV archive against its
+    stored baseline (``regress.check``, which raises on a failure)."""
     from elodin_tpu_torch import regress
 
     el.set_float_policy("f64")
@@ -889,10 +918,11 @@ def _baselined(el, example):
                                          lambda: regress.check(example, device="cuda"))
     if exec_.cols["world_pos"].device.type != "cuda" or exec_.tick() != regress.TICKS:
         raise AssertionError(f"{example}: not run on the card to tick {regress.TICKS}")
+    base = os.path.relpath(regress.baseline_dir(example), regress.REPO)
     print(f"{example} on the card (f64, Exec.run({regress.TICKS}) {wall:.3f} s, "
           f"{wall / regress.TICKS * 1e3:.4g} ms/tick): {n} baselined CSV files of "
-          f"scripts/baseline/{example}, vector cells parsed, 0 failures; the closest "
-          f"element used {share:.3g} of its tolerance (abs or rel 1e-4)")
+          f"{base}, vector cells parsed, 0 failures; the largest share of its "
+          f"tolerance (abs or rel 1e-4) an element used: {share:.3g}")
 
 
 def _rocket_cpu_reference(n, ticks):
@@ -946,7 +976,7 @@ def _examples(el):
         landing_cpu = pool.submit(_landing_cpu_reference, draws, MC_TICKS)
         for example in ("three-body", "rocket"):
             mod = regress.baselined_examples()[example]
-            _verify(example, mod.build_world(), mod.build_system(), 1.0 / mod.SIM_TIME_STEP)
+            _verify(example, mod.build_world(), mod.build_system(), regress.simulation_rate(mod))
         # 16. falcon9 without sensors through verify
         el.set_float_policy("f64")
         world, system = f9_sim.build(None, sensors=False)
@@ -1038,6 +1068,91 @@ def _landing(el, cpu_ref):
     _trace_and_profile(f"landing campaign ({MC_SAMPLES} samples, f64", campaign)
 
 
+def _rtf_exec(el, mod, device):
+    """An Exec of an example built as ``bench.py``'s RTF leg builds it:
+    ``SIMULATION_RATE`` or ``1 / SIM_TIME_STEP``, no history kept."""
+    el.set_float_policy("f64")
+    rate = getattr(mod, "SIMULATION_RATE", None) or 1.0 / mod.SIM_TIME_STEP
+    exec_ = mod.build_world().build(mod.build_system(), simulation_rate=rate, device=device)
+    exec_.record_history = False
+    return exec_, rate
+
+
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _rtf(el, example, mod, device):
+    """Phase 21 for one example on one device: a warm-up run, then
+    RTF_REPEATS timed runs of RTF_TICKS ticks (a host clock around each,
+    ended by a synchronise); returns (the Exec, each run's real-time
+    factor)."""
+    ticks = RTF_TICKS[example]
+    exec_, rate = _rtf_exec(el, mod, device)
+    exec_.run(RTF_WARMUP_TICKS, show_progress=False)
+    rtfs = []
+    for _ in range(RTF_REPEATS):
+        _sync(device)
+        t0 = time.perf_counter()
+        exec_.run(ticks, show_progress=False)
+        _sync(device)
+        rtfs.append(ticks / rate / (time.perf_counter() - t0))
+    med = statistics.median(rtfs)
+    print(f"{example} RTF on {device} (f64, {ticks} ticks at {rate:g} Hz = {ticks / rate:g} "
+          f"simulated s, {RTF_REPEATS} runs after a {RTF_WARMUP_TICKS}-tick warm-up): median "
+          f"{med:.4g} (min {min(rtfs):.4g}, max {max(rtfs):.4g}, spread "
+          f"{(max(rtfs) - min(rtfs)) / med:.1%} of the median), {1e3 / rate / med:.4g} ms/tick "
+          f"at the median; runs " + ", ".join(f"{r:.4g}" for r in rtfs))
+    if not np.isfinite(exec_.column_array("world_pos")).all():
+        raise AssertionError(f"{example} on {device}: world_pos is not finite")
+    return exec_, rtfs
+
+
+def _single_entity(el):
+    """Phases 19-23: the drone and the cube-sat (no hand kernel)."""
+    from elodin_tpu_torch import regress
+
+    examples = ("drone", "cube-sat")
+    # 19. the CSV gate on the card
+    for example in examples:
+        _baselined(el, example)
+    _clock("phase 19, Exec and the CSV gate")
+    # 20. the card against the CPU
+    for example in examples:
+        mod = regress.baselined_examples()[example]
+        el.set_float_policy("f64")
+        _verify(example, mod.build_world(), mod.build_system(), regress.simulation_rate(mod))
+    _clock("phase 20, verify")
+    # 21. real-time factor on the card and on the CPU; 22. trace and profile
+    for example in examples:
+        mod = regress.baselined_examples()[example]
+        card, card_rtf = _no_launches(f"{example} RTF on the card",
+                                      lambda: _rtf(el, example, mod, "cuda"))
+        _, cpu_rtf = _no_launches(f"{example} RTF on the CPU",
+                                  lambda: _rtf(el, example, mod, "cpu"))
+        print(f"{example}: the CPU over the card, median RTF "
+              f"{statistics.median(cpu_rtf) / statistics.median(card_rtf):.3g}x")
+        _clock(f"phase 21, {example}")
+        ops, busy, wall = _no_launches(
+            f"{example} device trace",
+            lambda: _device_trace(lambda: card.run(SINGLE_TRACE_TICKS, show_progress=False)))
+        n = SINGLE_TRACE_TICKS
+        print(f"device trace, {example} on the card (f64, Exec.run({n}), no history): "
+              f"{ops / n:.1f} device ops/tick, device busy {busy / n:.4g} ms/tick, wall "
+              f"{wall / n:.4g} ms/tick, idle share {1 - busy / wall:.2%}")
+        _host_profile(f"host profile, {example} on the card (f64, Exec.run({n}))",
+                      lambda: card.run(n, show_progress=False), n)
+    _clock("phases 21-22")
+    # 23. card facts
+    try:
+        import pyarrow
+        arrow = f"pyarrow {pyarrow.__version__} imports"
+    except ImportError as e:
+        arrow = f"pyarrow does not import ({e})"
+    print(f"card facts: torch.cuda.device_count() {torch.cuda.device_count()}; {arrow}")
+
+
 def _trace_and_profile(label, campaign, trace_ticks=TRACE_TICKS):
     """The device trace of ``trace_ticks`` ticks of a campaign, then a
     cProfile of TRACE_TICKS ticks."""
@@ -1094,12 +1209,13 @@ def main() -> int:
     _falcon9(el)
     _clock("phase 13")
     _examples(el)
+    _single_entity(el)
 
     if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
            for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
 
-    # 19. results
+    # 24. results
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

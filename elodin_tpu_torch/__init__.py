@@ -130,12 +130,23 @@ class World(WorldBuilder):
         self,
         system,
         simulation_rate: float = 120.0,
+        generate_real_time: bool = False,
         telemetry_rate: float | None = None,
+        default_playback_speed: float = 1.0,
         max_ticks: int | None = None,
+        optimize: bool = False,
+        db_path: str | None = None,
+        backend: str | None = None,
         device: str | torch.device = "cuda",
     ) -> Exec:
         """An ``Exec`` of ``system`` over this world's columns, moved to
-        ``device`` (where the JAX package takes ``backend``)."""
+        ``device``.  The parameters before it are the JAX package's, in its
+        order; ``generate_real_time``, ``default_playback_speed``,
+        ``optimize`` and ``backend`` are accepted and ignored, as there.
+        ``db_path`` needs the telemetry database, which is not ported."""
+        if db_path is not None:
+            raise NotImplementedError("World.build(db_path=...): the telemetry "
+                                      "database is not ported")
         self.set_sim_time_step(1.0 / simulation_rate)
         meta, cols = self.snapshot()
         return Exec(

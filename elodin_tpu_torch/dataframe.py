@@ -139,7 +139,9 @@ class DataFrame:
         )
 
     def write_parquet(self, path):
-        self._to_arrow_table().to_pandas().to_parquet(path)
+        import pyarrow.parquet as pq
+
+        pq.write_table(self._to_arrow_table(), str(path))
 
     def write_csv(self, path):
         import csv
@@ -162,14 +164,11 @@ class DataFrame:
         names = []
         for k, v in self._cols.items():
             names.append(k)
-            if v.ndim > 1:
-                arrays.append(
-                    pa.FixedSizeListArray.from_arrays(
-                        pa.array(v.reshape(-1)), v.shape[1]
-                    )
-                )
-            else:
-                arrays.append(pa.array(v))
+            arr = pa.array(v.reshape(-1)) if v.ndim > 1 else pa.array(v)
+            # a matrix cell (n, a, b) nests: b-lists inside a-lists
+            for size in reversed(v.shape[1:]):
+                arr = pa.FixedSizeListArray.from_arrays(arr, size)
+            arrays.append(arr)
         return pa.table(dict(zip(names, arrays)))
 
     def to_polars(self):  # pragma: no cover

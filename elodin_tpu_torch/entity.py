@@ -8,12 +8,19 @@ edge's id pair, or the value itself, always as numpy.
 
 from __future__ import annotations
 
+import re
 import typing
 
 import numpy as np
 import torch
 
 from .component import Component, ComponentType, component_type_of_value
+
+_snake_case_pattern = re.compile(r"(?<!^)(?=[A-Z])")
+
+
+def to_snake_case(name: str) -> str:
+    return _snake_case_pattern.sub("_", name).lower()
 
 
 def _leaf(value) -> np.ndarray:
@@ -66,6 +73,9 @@ class Edge:
         self.from_ = int(from_)
         self.to = int(to)
 
+    def reverse(self) -> "Edge":
+        return Edge(self.to, self.from_)
+
     def __repr__(self):
         return f"Edge({self.from_} -> {self.to})"
 
@@ -84,6 +94,10 @@ class TotalEdge:
 
 class Archetype(typing.Protocol):
     """Bundle of components spawned together."""
+
+    @classmethod
+    def archetype_name(cls) -> str:
+        return to_snake_case(cls.__name__)
 
     def component_data(self) -> list[Component]:
         out = []
@@ -113,6 +127,10 @@ class C:
         else:
             self.data = [Component.of(tys)]
             self.bufs = [_leaf(values)]
+
+    @classmethod
+    def archetype_name(cls) -> str:
+        return to_snake_case(cls.__name__)
 
     def arrays(self):
         return self.bufs

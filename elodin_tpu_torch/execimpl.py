@@ -185,7 +185,10 @@ class Exec:
 
     # -- running -------------------------------------------------------------
 
-    def run(self, ticks: int = 1, is_canceled=None):
+    def run(self, ticks: int = 1, show_progress: bool = True, is_canceled=None):
+        """``ticks`` ticks, committed to the history every telemetry
+        stride.  ``show_progress`` is accepted as the JAX package accepts
+        it, and shows nothing."""
         remaining = int(ticks)
         if self.max_ticks is not None:
             remaining = min(remaining, max(0, self.max_ticks - self._tick))
@@ -279,19 +282,26 @@ class Exec:
             return df
         return df.to_polars()
 
-    def save_archive(self, path, format: str = "csv") -> None:
-        """Write every 'entity.component' series to ``path/<name>.csv``
-        (``DataFrame.write_csv``: a time column, vector cells as lists).
-        Parquet and Arrow need pyarrow, which the port does not use yet."""
+    def save_archive(self, path, format: str = "parquet") -> None:
+        """Write every 'entity.component' series to ``path/<name>.<ext>``:
+        Parquet (``"parquet"``/``"pq"``) or Arrow IPC (``"arrow"``/
+        ``"arrow_ipc"``), both through pyarrow, imported here, or CSV
+        (``DataFrame.write_csv``: a time column, vector cells as lists)."""
         import pathlib
 
-        if format in ("parquet", "pq", "arrow", "arrow_ipc"):
-            raise NotImplementedError(
-                f"save_archive format {format!r} needs pyarrow and is not ported; "
-                "use 'csv'")
-        if format != "csv":
+        if format not in ("parquet", "pq", "arrow", "arrow_ipc", "csv"):
             raise ValueError(f"unknown archive format {format!r}")
         out = pathlib.Path(path)
         out.mkdir(parents=True, exist_ok=True)
         for name in self._history.column_names():
-            self.history_frame([name]).write_csv(out / f"{name}.csv")
+            df = self.history_frame([name])
+            if format in ("parquet", "pq"):
+                df.write_parquet(out / f"{name}.parquet")
+            elif format in ("arrow", "arrow_ipc"):
+                import pyarrow.ipc as ipc
+
+                table = df._to_arrow_table()
+                with ipc.new_file(str(out / f"{name}.arrow"), table.schema) as w:
+                    w.write_table(table)
+            else:
+                df.write_csv(out / f"{name}.csv")

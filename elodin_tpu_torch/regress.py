@@ -1,8 +1,8 @@
 """The telemetry regression gate for the port's examples: run an example
 for ``TICKS`` ticks, export every 'entity.component' series to CSV
 (``Exec.save_archive``) and hold each against a stored baseline
-(``scripts/baseline/<example>``) at per-column tolerances
-(``scripts/baseline/tolerances.json``).
+(``scripts/baseline/<example>``, or the re-export of ``REEXPORTED``) at
+per-column tolerances (``scripts/baseline/tolerances.json``).
 
 A cell of a vector or matrix component is a list (``[0.0, 1.0, ...]``);
 the reader parses it and compares it element by element, so vector
@@ -29,7 +29,16 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASELINE_ROOT = os.path.join(REPO, "scripts", "baseline")
+# The drone's and the cube-sat's baselines under scripts/baseline predate
+# the JAX examples' current form, and the JAX examples themselves fail them
+# (the drone in scalar columns too, and it has a component the baseline
+# lacks).  Their gate holds the port against the JAX package's own export
+# of the current examples, ``scripts/export_example.py EXAMPLE 240 DIR``
+# run on a CPU, stored here.
+REEXPORTED_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "baseline")
+REEXPORTED = ("drone", "cube-sat")
 DEFAULT_TOL = {"abs": 1e-4, "rel": 1e-4}
+DEFAULT_TIME_STEP = 1.0 / 120.0
 # the stored baselines' length (``scripts/regress.sh``): 241 rows, tick 0
 # and 240 ticks at 120 Hz
 TICKS = 240
@@ -37,11 +46,25 @@ TICKS = 240
 
 def baselined_examples() -> dict:
     """Example name (as under ``scripts/baseline``) -> its module with
-    ``build_world``, ``build_system`` and ``SIM_TIME_STEP``."""
+    ``build_world`` and ``build_system``."""
+    from .examples.cube_sat import main as cube_sat
+    from .examples.drone import main as drone
     from .examples.rocket import main as rocket
     from .examples.three_body import main as three_body
 
-    return {"three-body": three_body, "rocket": rocket}
+    return {"three-body": three_body, "rocket": rocket, "drone": drone, "cube-sat": cube_sat}
+
+
+def simulation_rate(mod) -> float:
+    """The rate the stored baselines ran an example at: ``1 /
+    SIM_TIME_STEP``, or 120 Hz for a module without one (the drone), as
+    ``scripts/export_example.py`` runs it."""
+    return 1.0 / getattr(mod, "SIM_TIME_STEP", DEFAULT_TIME_STEP)
+
+
+def baseline_dir(example: str) -> str:
+    """The directory of an example's stored baseline CSV files."""
+    return os.path.join(REEXPORTED_ROOT if example in REEXPORTED else BASELINE_ROOT, example)
 
 
 def _cell(text: str):
@@ -147,11 +170,11 @@ def export(example: str, out_dir, device="cuda"):
     seconds ``Exec.run`` took (it synchronises the card)."""
     mod = baselined_examples()[example]
     exec_ = mod.build_world().build(mod.build_system(), device=device,
-                                    simulation_rate=1.0 / mod.SIM_TIME_STEP)
+                                    simulation_rate=simulation_rate(mod))
     t0 = time.perf_counter()
     exec_.run(TICKS)
     wall = time.perf_counter() - t0
-    exec_.save_archive(out_dir, "csv")
+    exec_.save_archive(out_dir, format="csv")
     return exec_, wall
 
 
@@ -163,7 +186,7 @@ def check(example: str, device="cuda"):
     with tempfile.TemporaryDirectory(prefix=f"elodin-regress-{example}-") as out_dir:
         exec_, wall = export(example, out_dir, device)
         n, failures, worst = compare(
-            os.path.join(BASELINE_ROOT, example), out_dir,
+            baseline_dir(example), out_dir,
             load_tolerances(os.path.join(BASELINE_ROOT, "tolerances.json")))
     if failures:
         raise AssertionError(f"{example}: regression failures:\n  " + "\n  ".join(failures))
@@ -174,7 +197,8 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Telemetry regression gate of the port's examples")
-    ap.add_argument("examples", nargs="*", default=["three-body", "rocket"])
+    ap.add_argument("examples", nargs="*",
+                    default=["three-body", "rocket", "drone", "cube-sat"])
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
     for ex in a.examples:

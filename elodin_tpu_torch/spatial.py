@@ -100,6 +100,52 @@ def quat_from_euler(angles) -> Tensor:
     return torch.stack([x, y, z, w], dim=-1)
 
 
+def quat_integrate_body(q: Tensor, body_delta: Tensor) -> Tensor:
+    """q' = normalize(q + q*(delta/2, 0)): a body-frame angular increment."""
+    half = body_delta / 2.0
+    hq = torch.cat([half, torch.zeros_like(half[..., :1])], dim=-1)
+    return quat_normalize(q + quat_mul(q, hq))
+
+
+def quat_to_mat3(q: Tensor) -> Tensor:
+    """Rotation matrix (..., 3, 3) of a unit quaternion."""
+    x, y, z, w = q.unbind(-1)
+    r = torch.stack(
+        [
+            1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+            2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+            2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y),
+        ],
+        dim=-1,
+    )
+    return r.reshape(r.shape[:-1] + (3, 3))
+
+
+def quat_from_mat3(m) -> Tensor:
+    """Rotation matrix -> quaternion, branch-free through copysign."""
+    m = _as_f(m)
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    w = torch.sqrt(torch.clamp(1.0 + m00 + m11 + m22, min=0.0)) / 2.0
+    x = torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=0.0)) / 2.0
+    y = torch.sqrt(torch.clamp(1.0 - m00 + m11 - m22, min=0.0)) / 2.0
+    z = torch.sqrt(torch.clamp(1.0 - m00 - m11 + m22, min=0.0)) / 2.0
+    x = torch.copysign(x, m21 - m12)
+    y = torch.copysign(y, m02 - m20)
+    z = torch.copysign(z, m10 - m01)
+    return torch.stack([x, y, z, w], dim=-1)
+
+
+def skew(v: Tensor) -> Tensor:
+    """Skew-symmetric (cross-product) matrix of a 3-vector; batched."""
+    zero = torch.zeros_like(v[..., 0])
+    row0 = torch.stack([zero, -v[..., 2], v[..., 1]], dim=-1)
+    row1 = torch.stack([v[..., 2], zero, -v[..., 0]], dim=-1)
+    row2 = torch.stack([-v[..., 1], v[..., 0], zero], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
 def quat_normalize(q: Tensor) -> Tensor:
     return q * torch.rsqrt(torch.sum(q * q, dim=-1, keepdim=True))
 
@@ -233,6 +279,10 @@ class Quaternion(_SpatialBase):
     def from_euler(angles) -> "Quaternion":
         return Quaternion.from_array(quat_from_euler(angles))
 
+    @staticmethod
+    def from_rot_mat(mat) -> "Quaternion":
+        return Quaternion.from_array(quat_from_mat3(mat))
+
     def vector(self) -> Tensor:
         return self.inner
 
@@ -244,6 +294,18 @@ class Quaternion(_SpatialBase):
 
     def conjugate(self) -> "Quaternion":
         return Quaternion.from_array(quat_conj(self.inner))
+
+    def integrate_body(self, body_delta) -> "Quaternion":
+        return Quaternion.from_array(quat_integrate_body(self.inner, _as_f(body_delta)))
+
+    def angular_distance(self, other: "Quaternion") -> Tensor:
+        dot = torch.sum(self.inner * other.inner, dim=-1)
+        # |dot| of two normalised quaternions can round above 1, where
+        # arccos is NaN
+        return 2.0 * torch.arccos(torch.clamp(torch.abs(dot), 0.0, 1.0))
+
+    def to_mat3(self) -> Tensor:
+        return quat_to_mat3(self.inner)
 
     def __mul__(self, rhs: "Quaternion") -> "Quaternion":
         return Quaternion.from_array(quat_mul(self.inner, rhs.inner))
@@ -412,3 +474,20 @@ class SpatialInertia(_SpatialBase):
         torque = self.inertia_diag() * rhs.angular() + torch.linalg.cross(
             self.momentum(), rhs.linear())
         return SpatialForce.from_array(torch.cat([torque, force], dim=-1))
+
+
+# Default component descriptors, the JAX package's: an
+# ``Annotated[Quaternion, Component("name")]`` without a type takes its
+# type from here.
+from .component import Component as _Component, ComponentType as _ComponentType  # noqa: E402
+
+for _cls, _name, _ty in (
+    (Quaternion, "quaternion_f64", _ComponentType.Quaternion),
+    (SpatialTransform, "spatial_transform_f64", _ComponentType.SpatialPosF64),
+    (SpatialMotion, "spatial_motion_f64", _ComponentType.SpatialMotionF64),
+    (SpatialForce, "spatial_force_f64", _ComponentType.SpatialMotionF64),
+    (SpatialInertia, "spatial_inertia_f64", _ComponentType.SpatialPosF64),
+):
+    _cls.metadata = _Component(_name, _ty)
+    _cls.__metadata__ = (_cls.metadata,)
+del _cls, _name, _ty

@@ -104,6 +104,12 @@ class SystemBuilder:
             raise KeyError(f"component {name!r} has no column")
         return self.cols[name]
 
+    def write_column(self, name: str, value) -> None:
+        """Rebind a whole column, at its dtype, device and shape."""
+        col = self.cols[name]
+        self.cols[name] = torch.as_tensor(value, dtype=col.dtype,
+                                          device=col.device).reshape(col.shape)
+
     def gather(self, name: str, entity_ids) -> torch.Tensor:
         col = self.column(name)
         if self._is_full_column(name, entity_ids):
@@ -140,6 +146,13 @@ class System:
     def __or__(self, other) -> "System":
         """``a | b`` pipes systems."""
         return self.pipe(other)
+
+    def __ror__(self, other) -> "System":
+        """``f | b`` with a plain function ``f`` on the left."""
+        return as_system(other).pipe(self)
+
+    def system(self) -> "System":
+        return self
 
 
 class Pipe(System):

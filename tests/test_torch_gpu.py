@@ -295,3 +295,43 @@ def test_verify_trajectory_three_body_card_vs_cpu(cuda):
                                       ticks=100, simulation_rate=120.0)
     assert report["_summary"]["devices"] == ["cpu", "cuda"]
     assert report["_summary"]["metric_rel"] <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# the drone and the cube-sat (eager PyTorch ops, no hand kernel)
+#
+# Stated tolerance, f64: verify_trajectory's allclose(1e-6, 1e-6), the card
+# against the CPU, 100 ticks, and the CSV gate on the card (abs or rel 1e-4
+# against the re-exported baselines).
+# ---------------------------------------------------------------------------
+
+
+def _drone_and_cube_sat():
+    from elodin_tpu_torch.examples.cube_sat import main as cube_sat
+    from elodin_tpu_torch.examples.drone import main as drone
+
+    return {"drone": drone, "cube-sat": cube_sat}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("example", ["drone", "cube-sat"])
+def test_verify_trajectory_drone_and_cube_sat_card_vs_cpu(cuda, example):
+    from elodin_tpu_torch import regress
+
+    mod = _drone_and_cube_sat()[example]
+    before = (sk.LAUNCHES, pw.LAUNCHES)
+    report = verify.verify_trajectory(mod.build_world(), mod.build_system(), ticks=100,
+                                      simulation_rate=regress.simulation_rate(mod))
+    assert report["_summary"]["devices"] == ["cpu", "cuda"]
+    assert report["_summary"]["max_excess"] <= 1e-6
+    assert (sk.LAUNCHES, pw.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("example", ["drone", "cube-sat"])
+def test_csv_gate_on_the_card(cuda, example):
+    from elodin_tpu_torch import regress
+
+    exec_, _, n, worst = regress.check(example, device="cuda")
+    assert exec_.cols["world_pos"].device.type == "cuda" and exec_.tick() == regress.TICKS
+    assert n == {"drone": 33, "cube-sat": 56}[example] and worst <= 1.0

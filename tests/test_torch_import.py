@@ -25,6 +25,23 @@ PORT_MODULES = [
     "elodin_tpu_torch.examples.rocket.batched",
     "elodin_tpu_torch.examples.monte_carlo.sim",
     "elodin_tpu_torch.examples.monte_carlo.batched",
+    "elodin_tpu_torch.examples.drone.main",
+    "elodin_tpu_torch.examples.drone.params",
+    "elodin_tpu_torch.examples.drone.filter",
+    "elodin_tpu_torch.examples.drone.motors",
+    "elodin_tpu_torch.examples.drone.shaping",
+    "elodin_tpu_torch.examples.drone.sensors",
+    "elodin_tpu_torch.examples.drone.mekf",
+    "elodin_tpu_torch.examples.drone.control",
+    "elodin_tpu_torch.examples.cube_sat.main",
+    "elodin_tpu_torch.ops.fastrand",
+    "elodin_tpu_torch.ops.smallalg",
+    "elodin_tpu_torch.adcs",
+    "elodin_tpu_torch.adcs.mekf",
+    "elodin_tpu_torch.adcs.lqr",
+    "elodin_tpu_torch.gravity",
+    "elodin_tpu_torch.gravity.egm08",
+    "elodin_tpu_torch.gravity.egm08_coeffs",
     "elodin_tpu_torch.verify",
     "elodin_tpu_torch.regress",
 ]

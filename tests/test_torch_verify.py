@@ -7,9 +7,12 @@ Stated tolerances:
   channel group (max |Δ| / max |ref|).
 * The regression gate: every column of ``scripts/baseline/three-body``,
   vector columns included, within abs or rel 1e-4
-  (``scripts/baseline/tolerances.json``), 241 rows.
+  (``scripts/baseline/tolerances.json``), 241 rows.  The drone's and the
+  cube-sat's re-exported baselines (``regress.REEXPORTED``) hold the JAX
+  examples' exports of today with no failure (largest share ≤ 1e-6),
+  where ``scripts/baseline`` fails them.
 * ``save_archive``: the CSV read back equals the history bitwise (a float
-  is written as its shortest round-trip repr).
+  is written as its shortest round-trip repr); so do Parquet and Arrow.
 * ``verify_trajectory(devices=("cpu", "cpu"))``: the same program twice on
   one device, bitwise; the port's ``_diff`` equals the JAX package's on
   the same columns exactly.
@@ -109,10 +112,28 @@ def test_save_archive_reads_back_as_the_history(three_body):
 
 
 def test_save_archive_refuses_parquet_and_arrow(three_body, tmp_path):
+    """Parquet and Arrow IPC, which the archive once refused, are written
+    (Parquet by default, as in the JAX package) and read back as the
+    history; an unknown format is still refused."""
+    import pyarrow.ipc as ipc
+    import pyarrow.parquet as pq
+
     exec_, _ = three_body
-    for fmt in ("parquet", "arrow"):
-        with pytest.raises(NotImplementedError, match="pyarrow"):
-            exec_.save_archive(tmp_path, fmt)
+    names = exec_._history.column_names()
+    exec_.save_archive(tmp_path / "pq")
+    exec_.save_archive(tmp_path / "arrow", "arrow")
+    assert sorted(os.listdir(tmp_path / "pq")) == sorted(f"{n}.parquet" for n in names)
+    assert sorted(os.listdir(tmp_path / "arrow")) == sorted(f"{n}.arrow" for n in names)
+    for name in names:
+        hist = exec_.history_frame([name])
+        for table in (pq.read_table(tmp_path / "pq" / f"{name}.parquet"),
+                      ipc.open_file(str(tmp_path / "arrow" / f"{name}.arrow")).read_all()):
+            assert table.column_names == ["time", name]
+            back = np.asarray(table.column(name).to_pylist())
+            np.testing.assert_array_equal(back.reshape(hist[name].to_numpy().shape),
+                                          hist[name].to_numpy(), err_msg=name)
+            np.testing.assert_array_equal(table.column("time").to_numpy(),
+                                          hist["time"].to_numpy())
     with pytest.raises(ValueError):
         exec_.save_archive(tmp_path, "xml")
 
@@ -151,6 +172,23 @@ def test_the_gate_holds_vector_cells(three_body, tmp_path):
     spec.loader.exec_module(ref_reader)
     cells = ref_reader.load_csv(str(bad / "a.world_pos.csv"))["a.world_pos"]
     assert all(math.isnan(c) for c in cells)
+
+
+@pytest.mark.parametrize("example", regress.REEXPORTED)
+def test_reexported_baselines_are_the_jax_examples_exports(example, tmp_path):
+    """What ``scripts/export_example.py EXAMPLE 240 DIR`` writes today
+    passes the gate against the stored re-export with no failure, and fails
+    it against ``scripts/baseline``, which predates the JAX example."""
+    mod = jax_example(example, "main")
+    rate = 1.0 / getattr(mod, "SIM_TIME_STEP", regress.DEFAULT_TIME_STEP)
+    ex = mod.build_world().build(mod.build_system(), simulation_rate=rate)
+    ex.run(regress.TICKS)
+    ex.save_archive(str(tmp_path), "csv")
+    tol = regress.load_tolerances(os.path.join(regress.BASELINE_ROOT, "tolerances.json"))
+    n, failures, worst = regress.compare(regress.baseline_dir(example), tmp_path, tol)
+    assert failures == [] and worst <= 1e-6 and n == len(os.listdir(tmp_path))
+    _, stale, _ = regress.compare(os.path.join(regress.BASELINE_ROOT, example), tmp_path, tol)
+    assert stale
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Shared helpers of the tests that hold the PyTorch port (elodin_tpu_torch)
 to the JAX package (elodin_tpu).  Importing this module imports no JAX;
-only ``float_policy`` needs the JAX package."""
+only ``float_policy`` and ``call_once`` need the JAX package."""
 
 from __future__ import annotations
 
@@ -107,3 +107,40 @@ def jax_falcon9(name: str):
     """``examples/falcon9/<name>.py`` of the JAX package under the key
     ``f9_<name>`` (as ``tests/test_falcon9.py`` loads it)."""
     return jax_example("falcon9", name, key=f"f9_{name}")
+
+
+def call_once(jax_system, port_system, jax_meta, port_meta, cols: dict):
+    """One call of a system in each package (no tick increment) from the
+    same numpy columns; both packages' columns after it, as numpy."""
+    import jax.numpy as jnp
+
+    from elodin_tpu.system import SystemBuilder as JBuilder
+    from elodin_tpu_torch.interop import columns_from_numpy, columns_to_numpy
+    from elodin_tpu_torch.system import SystemBuilder as TBuilder
+
+    jb = JBuilder(jax_meta, {k: jnp.asarray(v) for k, v in cols.items()})
+    jax_system.call(jb)
+    tb = TBuilder(port_meta, columns_from_numpy(cols, port_meta, "cpu"))
+    port_system.call(tb)
+    return ({k: np.asarray(v) for k, v in jb.cols.items()},
+            columns_to_numpy(tb.cols, port_meta))
+
+
+def mixed_errs(ours: dict, ref: dict) -> dict[str, float]:
+    """max |ours - ref| / (1 + |ref|) of every float column, per channel
+    group of a (..., 7) or (..., 6) trailing axis (``_GROUPS``) and as one
+    group otherwise; integer columns must be equal."""
+    out = {}
+    for k, r in ref.items():
+        r, o = np.asarray(r), np.asarray(ours[k])
+        if r.dtype.kind != "f":
+            np.testing.assert_array_equal(o, r, err_msg=k)
+            continue
+        o, r = o.astype(np.float64), r.astype(np.float64)
+        if o.shape != r.shape:
+            raise ValueError(f"{k}: shapes differ: {o.shape} vs {r.shape}")
+        groups = _GROUPS.get(r.shape[-1], ()) if r.ndim >= 2 else ()
+        for name, idx in groups or (("all", slice(None)),):
+            d = np.abs(o[..., idx] - r[..., idx]) / (1.0 + np.abs(r[..., idx]))
+            out[f"{k}.{name}"] = float(d.max()) if d.size else 0.0
+    return out
