@@ -147,8 +147,9 @@ beside any of them:
     ticks, allclose(1e-6, 1e-6): max |Δ|/(1+|x|) and the worst columns.
 21. the real-time factor (simulated seconds over wall seconds) of each,
     built as ``bench.py``'s RTF leg builds it (``SIMULATION_RATE`` or ``1 /
-    SIM_TIME_STEP``, no history), run ``RTF_TICKS`` ticks (drone 1200 at
-    300 Hz, cube-sat 240 at 120 Hz) after a 30-tick warm-up,
+    SIM_TIME_STEP``, no history), run ``RTF_TICKS`` ticks (drone 300 at
+    300 Hz, cut from bench.py's 1200 to keep the script inside its time;
+    cube-sat 240 at 120 Hz) after a 30-tick warm-up,
     ``RTF_REPEATS`` times on the card and as often on the CPU with the same
     port: the median, min and max, and ms per tick.
 22. the device trace of each on the card (device ops per tick, busy time,
@@ -156,7 +157,42 @@ beside any of them:
 23. the card count and whether ``pyarrow`` imports (``Exec.save_archive``'s
     Parquet and Arrow need it; no phase does).
 
-24. a JSON line of the kernels (time, plain version's time and bound at
+JAX's threefry, the ball, linalg and stablehlo examples, the falcon9
+sensor suite and Exec checkpoints (eager PyTorch ops; no hand kernel:
+both kernels' launch counts are set to 0 before each of phases 24-27 and
+must read 0 after it), in f64 unless named:
+
+24. ``ops.threefry`` on the card against the CPU: the words of ``key``,
+    ``fold_in`` (a negative int32 among the data), ``split`` and ``bits``
+    (32- and 64-bit) and the f32 and f64 uniforms bit for bit, for 10**6
+    counters under two seeds and 1000 under three corner seeds (2**32 + 5,
+    -7, 2**40); the normals within 3 ulps (f32) and 8 (f64), the sum of
+    the card's documented erfinv error and the CPU's measured one, the
+    largest difference in ulps printed, and each side's against sqrt(2)
+    times scipy's erfinv of the same uniform.  Then the falcon9 suite's noise: ``sensors.noise_streams`` of
+    a tick's six streams equal to six ``sensors.noise`` calls bitwise, and
+    the host microseconds and device ops of one ``noise`` and one
+    ``noise_streams`` call.
+25. ball, linalg and stablehlo through ``regress.check`` on the card
+    (every column of ``scripts/baseline/<example>``, vector cells parsed,
+    abs or rel 1e-4), then ``verify_trajectory``, the card against the CPU,
+    100 ticks, then the real-time factor on the card and on the CPU
+    (``RTF_TICKS``: ball 600 ticks, cut from bench.py's 2400; stablehlo
+    1200; linalg 600), the device trace and a cProfile of the host.
+26. falcon9 with its sensors (``build(None)``): ``verify_trajectory``, the
+    card against the CPU, 100 ticks, under f64 (the JAX bench's leg) and
+    under the mixed policy at max |Δ|/(1+|x|) ≤ 1e-6 (its mixed leg); then
+    ``Exec.run`` of the mission with and without sensors on the card (no
+    history): ms/tick over 100 ticks, device ops per tick and idle share,
+    and a cProfile of the tick with sensors.
+27. Exec checkpoints on the card, on falcon9 with sensors and a history
+    small enough to spill to its spool: 30 ticks, ``restore(10)`` (the
+    history cut to 11 rows, spilled chunks included), 20 more ticks, and
+    every column bitwise equal to the first run's tick 30;
+    ``save_checkpoint`` then ``load_checkpoint`` after 5 more ticks,
+    bitwise; ``verify.checkpoint_first_tick`` writes its three files.
+
+28. a JSON line of the kernels (time, plain version's time and bound at
     the main path's width, launches on the main path; no PyTorch call
     computes either function, so ``library_ms`` is null), then the last
     line ``{"ok": true, "device": {...}}``.
@@ -226,10 +262,23 @@ ROCKETS, ROCKET_TICKS, ROCKET_CPU_SAMPLES, EX_TOL = 1024, 240, 8, 1e-9
 ROCKET_TRACE_TICKS = 2
 MC_SAMPLES, MC_TICKS, MC_CPU_SAMPLES, MC_FRAC_SLACK = 10000, 2400, 64, 5
 # bench.py's RTF run lengths of the single-entity sims, and the repeats
-RTF_TICKS = {"drone": 1200, "cube-sat": 240}
+# (the drone cut from 1200 and the ball from 2400 ticks to keep the script
+# inside its time)
+RTF_TICKS = {"drone": 300, "cube-sat": 240, "ball": 600, "stablehlo": 1200, "linalg": 600}
 RTF_REPEATS = 3
 RTF_WARMUP_TICKS = 30
 SINGLE_TRACE_TICKS = 10
+THREEFRY_COUNTERS, THREEFRY_CORNER_COUNTERS = 10**6, 1000
+# the normals' largest difference, card against CPU, in ulps: the card's
+# erfinv is the CUDA math library's (documented at 2 ulps in f32 and 5 in
+# f64), the CPU's is within 1 and 3 ulps of a correctly rounded erfinv
+# (tests/test_torch_threefry.py holds it against scipy's)
+NORMAL_ULPS = {torch.float32: 3, torch.float64: 8}
+NOISE_CALLS = 50
+F9_SENSOR_TICKS, F9_MIXED_TOL = 100, 1e-6
+CKPT_TICKS, CKPT_RESTORE, CKPT_MORE = 30, 10, 5
+# history bytes before a spill, small enough that phase 27's run spills
+CKPT_HISTORY_BYTES = 16 << 10
 # the JAX package's landing campaign, examples/monte-carlo/batched.py
 # run_campaign(10000, 2400, seed=0), run on a CPU (JAX_PLATFORMS=cpu, f64)
 JAX_MC_LANDED_FRAC, JAX_MC_SOFT_FRAC = 0.9759, 0.9401
@@ -905,6 +954,7 @@ def _verify(label, world, system, rate):
           f"relative {summary['max_rel']:.3e}, largest excess over 1e-6 * scale "
           f"{summary['max_excess']:.3e} (allclose atol 1e-6 passes); by column: "
           + ", ".join(f"{k} {v['metric_rel']:.2e}" for k, v in worst))
+    return summary
 
 
 def _baselined(el, example):
@@ -916,7 +966,7 @@ def _baselined(el, example):
     el.set_float_policy("f64")
     exec_, wall, n, share = _no_launches(f"{example} regress.check",
                                          lambda: regress.check(example, device="cuda"))
-    if exec_.cols["world_pos"].device.type != "cuda" or exec_.tick() != regress.TICKS:
+    if exec_.cols["tick"].device.type != "cuda" or exec_.tick() != regress.TICKS:
         raise AssertionError(f"{example}: not run on the card to tick {regress.TICKS}")
     base = os.path.relpath(regress.baseline_dir(example), regress.REPO)
     print(f"{example} on the card (f64, Exec.run({regress.TICKS}) {wall:.3f} s, "
@@ -980,8 +1030,8 @@ def _examples(el):
         # 16. falcon9 without sensors through verify
         el.set_float_policy("f64")
         world, system = f9_sim.build(None, sensors=False)
-        _verify("falcon9 (build(None, sensors=False); the JAX bench's leg has sensors, "
-                "which are not ported)", world, system, f9_sim.SIM_RATE_HZ)
+        _verify("falcon9 without sensors (build(None, sensors=False), the campaign's "
+                "mission)", world, system, f9_sim.SIM_RATE_HZ)
         _clock("phases 14-16, verify")
         t1 = time.perf_counter()
         rocket_ref, landing_ref = rocket_cpu.result(), landing_cpu.result()
@@ -1104,9 +1154,45 @@ def _rtf(el, example, mod, device):
           f"{med:.4g} (min {min(rtfs):.4g}, max {max(rtfs):.4g}, spread "
           f"{(max(rtfs) - min(rtfs)) / med:.1%} of the median), {1e3 / rate / med:.4g} ms/tick "
           f"at the median; runs " + ", ".join(f"{r:.4g}" for r in rtfs))
-    if not np.isfinite(exec_.column_array("world_pos")).all():
-        raise AssertionError(f"{example} on {device}: world_pos is not finite")
+    _all_finite(f"{example} on {device}", exec_)
     return exec_, rtfs
+
+
+def _all_finite(label, exec_):
+    for name, col in exec_.cols.items():
+        if col.is_floating_point() and not torch.isfinite(col).all():
+            raise AssertionError(f"{label}: {name} is not finite")
+
+
+def _rtf_trace_profile(el, examples):
+    """Phases 21-22 (and 25's) for each example: the real-time factor on the
+    card and on the CPU, then the device trace and a cProfile of the host
+    on the card."""
+    from elodin_tpu_torch import regress
+
+    for example in examples:
+        mod = regress.baselined_examples()[example]
+        card, card_rtf = _no_launches(f"{example} RTF on the card",
+                                      lambda: _rtf(el, example, mod, "cuda"))
+        _, cpu_rtf = _no_launches(f"{example} RTF on the CPU",
+                                  lambda: _rtf(el, example, mod, "cpu"))
+        print(f"{example}: the CPU over the card, median RTF "
+              f"{statistics.median(cpu_rtf) / statistics.median(card_rtf):.3g}x")
+        _clock(f"RTF, {example}")
+        _trace_exec(f"{example} on the card (f64, Exec.run({SINGLE_TRACE_TICKS}), no history)",
+                    card)
+
+
+def _trace_exec(label, exec_):
+    """The device trace and a cProfile of SINGLE_TRACE_TICKS ticks of an
+    Exec on the card."""
+    n = SINGLE_TRACE_TICKS
+    ops, busy, wall = _no_launches(
+        f"{label} device trace",
+        lambda: _device_trace(lambda: exec_.run(n, show_progress=False)))
+    print(f"device trace, {label}: {ops / n:.1f} device ops/tick, device busy "
+          f"{busy / n:.4g} ms/tick, wall {wall / n:.4g} ms/tick, idle share {1 - busy / wall:.2%}")
+    _host_profile(f"host profile, {label}", lambda: exec_.run(n, show_progress=False), n)
 
 
 def _single_entity(el):
@@ -1125,24 +1211,7 @@ def _single_entity(el):
         _verify(example, mod.build_world(), mod.build_system(), regress.simulation_rate(mod))
     _clock("phase 20, verify")
     # 21. real-time factor on the card and on the CPU; 22. trace and profile
-    for example in examples:
-        mod = regress.baselined_examples()[example]
-        card, card_rtf = _no_launches(f"{example} RTF on the card",
-                                      lambda: _rtf(el, example, mod, "cuda"))
-        _, cpu_rtf = _no_launches(f"{example} RTF on the CPU",
-                                  lambda: _rtf(el, example, mod, "cpu"))
-        print(f"{example}: the CPU over the card, median RTF "
-              f"{statistics.median(cpu_rtf) / statistics.median(card_rtf):.3g}x")
-        _clock(f"phase 21, {example}")
-        ops, busy, wall = _no_launches(
-            f"{example} device trace",
-            lambda: _device_trace(lambda: card.run(SINGLE_TRACE_TICKS, show_progress=False)))
-        n = SINGLE_TRACE_TICKS
-        print(f"device trace, {example} on the card (f64, Exec.run({n}), no history): "
-              f"{ops / n:.1f} device ops/tick, device busy {busy / n:.4g} ms/tick, wall "
-              f"{wall / n:.4g} ms/tick, idle share {1 - busy / wall:.2%}")
-        _host_profile(f"host profile, {example} on the card (f64, Exec.run({n}))",
-                      lambda: card.run(n, show_progress=False), n)
+    _rtf_trace_profile(el, examples)
     _clock("phases 21-22")
     # 23. card facts
     try:
@@ -1151,6 +1220,197 @@ def _single_entity(el):
     except ImportError as e:
         arrow = f"pyarrow does not import ({e})"
     print(f"card facts: torch.cuda.device_count() {torch.cuda.device_count()}; {arrow}")
+
+
+def _ulps(ref, ours) -> float:
+    """The largest |ours - ref| in ulps of ref, in ref's dtype."""
+    ref, ours = ref.cpu().numpy(), ours.cpu().numpy()
+    d = np.abs(ours.astype(np.float64) - ref.astype(np.float64))
+    return float((d / np.spacing(np.abs(ref)).astype(np.float64)).max())
+
+
+def _threefry_draws(tf, seed, n, device):
+    """Every threefry output phase 24 holds, for one seed and n counters."""
+    key = tf.key(torch.tensor(seed, dtype=torch.int64, device=device))
+    data = torch.tensor([-3, -1, 0, 1, 6, 2**31 - 1], dtype=torch.int32, device=device)
+    hi, lo = tf.bits(key, (n,), 64)
+    return {
+        "key": key, "fold_in": tf.fold_in(key, data), "split 2": tf.split(key, 2),
+        "split 4": tf.split(key, 4), "bits 32": tf.bits(key, (n,)), "bits 64 hi": hi,
+        "bits 64 lo": lo, "uniform f32": tf.uniform(key, (n,), torch.float32),
+        "uniform f64": tf.uniform(key, (n,), torch.float64, -3.0, 5.0),
+        "normal f32": tf.normal(key, (n,), torch.float32),
+        "normal f64": tf.normal(key, (n,), torch.float64),
+    }
+
+
+def _threefry(el):
+    """Phase 24: JAX's threefry on the card against the CPU, and the cost
+    of the falcon9 suite's noise."""
+    from elodin_tpu_torch.examples.falcon9 import sensors as f9_sensors
+    from elodin_tpu_torch.ops import threefry as tf
+
+    import scipy.special
+
+    worst, exact = {}, {}
+    cases = [(0, THREEFRY_COUNTERS), (20170814, THREEFRY_COUNTERS)] + [
+        (seed, THREEFRY_CORNER_COUNTERS) for seed in (2**32 + 5, -7, 2**40)]
+    for seed, n in cases:
+        card = _no_launches(f"threefry seed {seed}, {n} counters",
+                            lambda: _threefry_draws(tf, seed, n, "cuda"))
+        cpu = _threefry_draws(tf, seed, n, "cpu")
+        for name, ref in cpu.items():
+            if not name.startswith("normal"):
+                if not torch.equal(ref, card[name].cpu()):
+                    raise AssertionError(f"threefry seed {seed}: {name} differs on the card")
+                continue
+            dtype = ref.dtype
+            worst[dtype] = max(worst.get(dtype, 0.0), _ulps(ref, card[name]))
+            # sqrt(2) * a correctly rounded erfinv of the same uniform
+            u = tf.uniform(cpu["key"], (n,), dtype, tf._lowest(dtype), 1.0)
+            best = torch.as_tensor(np.sqrt(2.0) * scipy.special.erfinv(u.double().numpy())).to(dtype)
+            for side, value in (("card", card[name]), ("cpu", ref)):
+                exact[side, dtype] = max(exact.get((side, dtype), 0.0), _ulps(best, value))
+    print(f"threefry on the card vs the CPU ({len(cases)} seeds, up to {THREEFRY_COUNTERS} "
+          f"counters): key, fold_in, split, bits 32/64 and uniform f32/f64 bit for bit; normals, "
+          f"largest difference card vs CPU "
+          + ", ".join(f"{d} {worst[d]:g} ulps (at most {NORMAL_ULPS[d]})" for d in worst)
+          + "; against sqrt(2) * scipy's erfinv of the same uniform: "
+          + ", ".join(f"{side} {d} {v:g} ulps" for (side, d), v in exact.items()))
+    if any(worst[d] > NORMAL_ULPS[d] for d in worst):
+        raise AssertionError(f"threefry normals on the card differ by {worst} ulps")
+
+    # the falcon9 suite's noise: one tick's six streams, batched and one by one
+    count = torch.tensor(1234.0, dtype=torch.float64, device="cuda")
+    tick = torch.tensor(1234, dtype=torch.int64, device="cuda")
+    draws = [(tick, 1, (3,), f9_sensors.IMU_ACCEL_SIGMA), (tick, 2, (3,), f9_sensors.IMU_GYRO_SIGMA),
+             (count, 3, (3,), f9_sensors.GPS_POS_SIGMA), (count, 4, (3,), f9_sensors.GPS_VEL_SIGMA),
+             (count, 5, (), f9_sensors.RADAR_SIGMA_M), (tick, 6, (4,), f9_sensors.PRESSURE_SIGMA_PA)]
+    one_by_one = lambda: [f9_sensors.noise(*d) for d in draws]  # noqa: E731
+    batched = lambda: f9_sensors.noise_streams(draws)  # noqa: E731
+    if not all(torch.equal(a, b) for a, b in zip(batched(), one_by_one())):
+        raise AssertionError("noise_streams differs from noise on the card")
+    for label, fn in (("one noise call (3 lanes)", lambda: f9_sensors.noise(*draws[0])),
+                      ("six noise calls (one tick's streams)", one_by_one),
+                      ("one noise_streams call (the six streams, 17 lanes)", batched)):
+        ops, busy, _ = _no_launches(f"falcon9 {label} trace", lambda: _device_trace(fn))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NOISE_CALLS):
+            fn()
+        host_us = (time.perf_counter() - t0) / NOISE_CALLS * 1e6
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) / NOISE_CALLS * 1e6
+        print(f"falcon9 noise on the card, {label}: {ops} device ops, device busy "
+              f"{busy * 1e3:.4g} us; host {host_us:.4g} us a call ({NOISE_CALLS} calls back to "
+              f"back), {wall_us:.4g} us a call with the card synchronised at the end")
+
+
+def _baselined_examples_phase(el):
+    """Phase 25: ball, linalg and stablehlo through the CSV gate, verify,
+    the real-time factor, the device trace and a host profile."""
+    from elodin_tpu_torch import regress
+
+    examples = ("ball", "linalg", "stablehlo")
+    for example in examples:
+        _baselined(el, example)
+    for example in examples:
+        mod = regress.baselined_examples()[example]
+        el.set_float_policy("f64")
+        _verify(example, mod.build_world(), mod.build_system(), regress.simulation_rate(mod))
+    _clock("phase 25, the CSV gate and verify")
+    _rtf_trace_profile(el, examples)
+
+
+def _f9_exec(el, sensors, policy="f64", history=False):
+    """The falcon9 mission, ``build(None, sensors=sensors)``, through
+    ``World.build`` on the card."""
+    from elodin_tpu_torch.examples.falcon9 import sim as f9_sim
+
+    el.set_float_policy(policy)
+    world, system = f9_sim.build(None, sensors=sensors)
+    exec_ = world.build(system, simulation_rate=f9_sim.SIM_RATE_HZ, device="cuda")
+    exec_.record_history = history
+    return exec_
+
+
+def _falcon9_sensors(el):
+    """Phase 26: falcon9 with sensors through verify under f64 and the mixed
+    policy, and its tick with and without sensors."""
+    from elodin_tpu_torch.examples.falcon9 import sim as f9_sim
+
+    for policy, leg in (("f64", "the JAX bench's f64 leg"), ("mixed", "its mixed leg")):
+        el.set_float_policy(policy)
+        world, system = f9_sim.build(None)
+        summary = _verify(f"falcon9 with sensors, {policy} policy ({leg})", world, system,
+                          f9_sim.SIM_RATE_HZ)
+        if not summary["metric_rel"] <= F9_MIXED_TOL:
+            raise AssertionError(f"falcon9 with sensors, {policy}: max |Δ|/(1+|x|) "
+                                 f"{summary['metric_rel']:.3e} exceeds {F9_MIXED_TOL:g}")
+    el.set_float_policy("f64")
+    _clock("phase 26, verify")
+    for sensors in (True, False):
+        label = "with" if sensors else "without"
+        exec_ = _f9_exec(el, sensors)
+        exec_.run(10, show_progress=False)
+        wall = _no_launches(f"falcon9 {label} sensors Exec.run({F9_SENSOR_TICKS})",
+                            lambda: _run_timed(exec_, F9_SENSOR_TICKS))
+        _all_finite(f"falcon9 {label} sensors", exec_)
+        print(f"falcon9 {label} sensors on the card (f64, one mission, Exec.run("
+              f"{F9_SENSOR_TICKS}) from tick 10, no history): {wall / F9_SENSOR_TICKS * 1e3:.4g} "
+              f"ms/tick, RTF {F9_SENSOR_TICKS / f9_sim.SIM_RATE_HZ / wall:.4g}")
+        _trace_exec(f"falcon9 {label} sensors on the card (f64, Exec.run("
+                    f"{SINGLE_TRACE_TICKS}), no history)", exec_)
+
+
+def _checkpoints(el):
+    """Phase 27: restore, save_checkpoint / load_checkpoint and
+    checkpoint_first_tick on the card."""
+    import shutil
+    import tempfile
+
+    from elodin_tpu_torch import verify
+
+    exec_ = _f9_exec(el, True, history=True)
+    exec_._history.max_bytes = CKPT_HISTORY_BYTES
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-checkpoint-")
+    try:
+        _no_launches(f"falcon9 Exec.run({CKPT_TICKS})", lambda: exec_.run(CKPT_TICKS))
+        first = {k: v.clone() for k, v in exec_.cols.items()}
+        spills = len(exec_._history._spills["world_pos"])
+        path = os.path.join(tmp, "state.npz")
+        exec_.save_checkpoint(path)
+        exec_.restore(CKPT_RESTORE)
+        rows = len(exec_._history.series("world_pos"))
+        if exec_.tick() != CKPT_RESTORE or rows != CKPT_RESTORE + 1:
+            raise AssertionError(f"restore({CKPT_RESTORE}): tick {exec_.tick()}, {rows} rows")
+        _no_launches(f"falcon9 Exec.run({CKPT_TICKS - CKPT_RESTORE}) after restore",
+                     lambda: exec_.run(CKPT_TICKS - CKPT_RESTORE))
+        rerun = [k for k in first if not torch.equal(first[k], exec_.cols[k])]
+        rows = len(exec_._history.series("world_pos"))
+        if rerun or rows != CKPT_TICKS + 1:
+            raise AssertionError(f"after restore and re-run: {rows} rows, differing {rerun}")
+        exec_.run(CKPT_MORE)
+        exec_.load_checkpoint(path)
+        loaded = [k for k in first if not torch.equal(first[k], exec_.cols[k])]
+        if loaded:
+            raise AssertionError(f"load_checkpoint differs in {loaded}")
+        os.environ[verify.DEBUG_DIR_ENV] = os.path.join(tmp, "debug")
+        out = verify.checkpoint_first_tick(exec_)
+        with np.load(os.path.join(out, "tick1_outputs.npz")) as tick1:
+            if int(tick1["tick"][0]) != CKPT_TICKS + 1:
+                raise AssertionError(f"checkpoint_first_tick: tick {tick1['tick']}")
+        print(f"checkpoints on the card (falcon9 with sensors, f64, history spilled to its spool "
+              f"in {spills} chunks by tick {CKPT_TICKS}): restore({CKPT_RESTORE}) cut the history "
+              f"to {CKPT_RESTORE + 1} rows, {CKPT_TICKS - CKPT_RESTORE} ticks more gave all "
+              f"{len(first)} columns bitwise equal to the first run's tick {CKPT_TICKS}; "
+              f"save_checkpoint -> {CKPT_MORE} ticks -> load_checkpoint bitwise; "
+              f"checkpoint_first_tick wrote {sorted(os.listdir(out))}")
+    finally:
+        os.environ.pop(verify.DEBUG_DIR_ENV, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+        if exec_._history._spool_dir:
+            shutil.rmtree(exec_._history._spool_dir, ignore_errors=True)
 
 
 def _trace_and_profile(label, campaign, trace_ticks=TRACE_TICKS):
@@ -1210,12 +1470,20 @@ def main() -> int:
     _clock("phase 13")
     _examples(el)
     _single_entity(el)
+    _threefry(el)
+    _clock("phase 24")
+    _baselined_examples_phase(el)
+    _clock("phase 25")
+    _falcon9_sensors(el)
+    _clock("phase 26")
+    _checkpoints(el)
+    _clock("phase 27")
 
     if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
            for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
 
-    # 24. results
+    # 28. results
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -91,6 +91,9 @@ Inertia = Annotated[
     Component("inertia", ComponentType.SpatialPosF64, metadata={"priority": 5}),
 ]
 # the globals: ``tick`` is u64 in the world and int64 on the device
+Seed = Annotated[
+    torch.Tensor, Component("seed", ComponentType.U64, metadata={"priority": 5})
+]
 SimulationTick = Annotated[
     torch.Tensor, Component("tick", ComponentType.U64, metadata={"priority": 7})
 ]
@@ -160,4 +163,5 @@ class World(WorldBuilder):
         )
 
 
+from . import linalg as linalg  # noqa: E402,F401
 from . import monte_carlo as monte_carlo  # noqa: E402,F401

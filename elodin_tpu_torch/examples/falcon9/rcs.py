@@ -85,8 +85,9 @@ def allocate_torque(torque_cmd_body, cg_station_m, thrust_n=RCS_THRUST_PER_THRUS
     authority (clipped), and demands under the minimum-impulse floor (2 %
     of authority) dropped.  Runs under ``torch.func.vmap``."""
     cmd = f64(torque_cmd_body)
-    masks = const(_MASKS, cmd)
     b_t = effectiveness_matrix(cg_station_m, thrust_n)[3:6]  # (3, N)
+    # the 0/1 masks at the CG's dtype (f32 under the mixed policy)
+    masks = const(_MASKS, b_t)
     group_auth = masks @ b_t.T  # (3, 2, 3): torque of each group per axis
     axis_auth = torch.stack([group_auth[a, :, a] for a in range(3)])  # (3, 2)
     pick_pos = cmd >= 0.0

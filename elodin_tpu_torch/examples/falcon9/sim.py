@@ -7,7 +7,9 @@ rotating ECEF frame with the flight software in the tick.
 Every system keeps the JAX example's arithmetic in the same order, so a
 tick of the port agrees with a tick of the JAX package to f64 round-off.
 ``jnp.select`` is a nested ``torch.where``, ``lax.scan`` a Python loop.
-The sensors are not ported yet.
+The sensor suite draws its six noise streams of a tick in one batched
+threefry (``sensors.noise_streams``), which gives the JAX package's
+values.
 
 Body frame: +X nose; engines at station 0 thrust along +X.  (This module
 defines ``@el.system`` functions, so it must not use postponed
@@ -28,6 +30,7 @@ from . import aero
 from . import atmosphere
 from . import propulsion as prop_mod
 from . import rcs as rcs_mod
+from . import sensors as sn
 from . import zemzev
 from .._consts import const
 from .constants import (
@@ -199,6 +202,7 @@ _DOWNRANGE = np.array([math.sin(_AZ), math.cos(_AZ), 0.0])
 _PITCH_KICK_RAD = math.radians(PITCH_KICK_DEG)
 _TAN_1_DEG = math.tan(math.radians(1.0))
 _ROLL_FREE = np.array([0.0, 1.0, 1.0])
+_RADAR_BORESIGHT = np.array([-1.0, 0.0, 0.0])
 _ONE_MINUS_UP = 1.0 - _UP
 
 
@@ -211,7 +215,10 @@ def _dot(a: T, b: T) -> T:
 
 
 def _cross(a: T, b: T) -> T:
-    return torch.linalg.cross(a, b, dim=-1)
+    """``jnp.cross``, promoting an f32 operand to f64 as JAX does (the mixed
+    policy keeps most columns in f32)."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    return torch.linalg.cross(a.to(dtype), b.to(dtype), dim=-1)
 
 
 def _select(conds, values, default: T) -> T:
@@ -821,6 +828,89 @@ def effectors(
             spec_force)
 
 
+# --- sensors -----------------------------------------------------------------
+
+
+@el.system
+def sensor_suite(
+    tick: el.Query[el.SimulationTick],
+    ts: el.Query[el.SimulationTimeStep],
+    q: el.Query[
+        el.WorldPos, el.WorldVel, SpecForceBody, MachNum, ThrustTotal, TankPressure,
+        InletPressure, sn.GpsTimer, sn.GpsPos, sn.GpsVel, sn.GpsCount, sn.RadarTimer,
+        sn.RadarRange, sn.RadarCount,
+    ],
+) -> el.Query[
+    sn.ImuAccel, sn.ImuGyro, sn.GpsTimer, sn.GpsPos, sn.GpsVel, sn.GpsCount,
+    sn.RadarTimer, sn.RadarRange, sn.RadarCount, sn.PressureMeas, sn.DisplaySpeed,
+    sn.DisplayAlt,
+]:
+    """IMU at the physics rate; GPS and radar on a timer accumulator with
+    hold and sample counters; GPS blackout in the retropropulsion plasma.
+    The six noise draws of a tick are made together, before use."""
+    dt = ts[0]
+    k = tick[0]
+
+    def one(pos, vel, sf_body, mach, thrust, tank_p, inlet_p,
+            gps_timer, gps_pos, gps_vel, gps_count,
+            radar_timer, radar_range, radar_count):
+        q = pos.angular()
+        r_enu = to_enu(pos.linear())
+        v_enu = vec_enu(vel.linear())
+        omega_body = q.inverse() @ vel.angular()
+        next_count = gps_count + 1.0
+        next_rcount = radar_count + 1.0
+        n_accel, n_gyro, n_gps_pos, n_gps_vel, n_radar, n_pressure = sn.noise_streams([
+            (k, 1, (3,), sn.IMU_ACCEL_SIGMA),
+            (k, 2, (3,), sn.IMU_GYRO_SIGMA),
+            (next_count, 3, (3,), sn.GPS_POS_SIGMA),
+            (next_count, 4, (3,), sn.GPS_VEL_SIGMA),
+            (next_rcount, 5, (), sn.RADAR_SIGMA_M),
+            (k, 6, (4,), sn.PRESSURE_SIGMA_PA),
+        ])
+
+        imu_accel = sf_body + n_accel
+        w_earth_body = q.inverse() @ const(_W_EARTH, r_enu)
+        imu_gyro = omega_body + w_earth_body + n_gyro
+
+        # GPS: 25 Hz sample and hold, blacked out in hot retropropulsion
+        gps_timer = gps_timer + dt
+        gps_due = gps_timer >= 1.0 / sn.GPS_RATE_HZ
+        blackout = (mach > sn.BLACKOUT_MACH_MIN) & (thrust > sn.BLACKOUT_THRUST_MIN_N)
+        gps_fire = gps_due & ~blackout
+        gps_timer = torch.where(gps_due, gps_timer - 1.0 / sn.GPS_RATE_HZ, gps_timer)
+        gps_pos = torch.where(gps_fire, r_enu + n_gps_pos, gps_pos)
+        gps_vel = torch.where(gps_fire, v_enu + n_gps_vel, gps_vel)
+        gps_count = torch.where(gps_fire, next_count, gps_count)
+
+        # radar altimeter along -X (engines first), gated by FOV and range
+        radar_timer = radar_timer + dt
+        radar_due = radar_timer >= 1.0 / sn.RADAR_RATE_HZ
+        radar_timer = torch.where(radar_due, radar_timer - 1.0 / sn.RADAR_RATE_HZ, radar_timer)
+        boresight = q @ const(_RADAR_BORESIGHT, r_enu)
+        cos_down = _dot(boresight, -const(_U_HAT, r_enu))
+        h = torch.clamp(r_enu[2], min=0.0)
+        slant = h / torch.clamp(cos_down, min=1e-3)
+        visible = (cos_down > sn.RADAR_FOV_COS) & (slant < sn.RADAR_MAX_RANGE_M)
+        meas = slant + n_radar
+        radar_range = torch.where(radar_due, torch.where(visible, meas, -1.0), radar_range)
+        radar_count = torch.where(radar_due & visible, next_rcount, radar_count)
+
+        pressure = torch.cat([tank_p, inlet_p]) + n_pressure
+
+        speed = _norm(v_enu)
+        disp_speed = torch.round(speed / sn.DISPLAY_SPEED_STEP) * sn.DISPLAY_SPEED_STEP
+        disp_alt = torch.round(r_enu[2] / sn.DISPLAY_ALT_STEP) * sn.DISPLAY_ALT_STEP
+        return (imu_accel, imu_gyro, gps_timer, gps_pos, gps_vel, gps_count,
+                radar_timer, radar_range, radar_count, pressure, disp_speed, disp_alt)
+
+    return q.map(
+        (sn.ImuAccel, sn.ImuGyro, sn.GpsTimer, sn.GpsPos, sn.GpsVel, sn.GpsCount,
+         sn.RadarTimer, sn.RadarRange, sn.RadarCount, sn.PressureMeas, sn.DisplaySpeed,
+         sn.DisplayAlt),
+        one)
+
+
 # --- ground interaction ------------------------------------------------------
 
 
@@ -885,15 +975,10 @@ def contact(
 def build(params=None, sensors: bool = True) -> tuple[el.World, el.System]:
     """The booster's world and the tick's system.  Guidance runs at 20 Hz
     against the 100 Hz plant (``el.every``, holding its commands between
-    updates) and at full rate from DESCENT on, in any sample.
-
-    ``sensors=True`` (the JAX example's default) raises: its sensor suite
-    draws noise with ``jax.random``, which torch cannot reproduce, and
-    waits for the sensors slice of the port (``ROADMAP.md``)."""
-    if sensors:
-        raise NotImplementedError(
-            "falcon9 sensors are not ported yet (the sensors slice in ROADMAP.md); "
-            "build(sensors=False) runs the physics and flight software")
+    updates) and at full rate from DESCENT on, in any sample.  With
+    ``sensors`` (the default, as in the JAX example) the booster carries a
+    ``SensorSuite`` and ``sensor_suite`` runs before ``contact``; no system
+    reads the sensors, so the mission is the same without them."""
     p = {k: (params.get(k, v.default) if params else v.default) for k, v in PARAMS.items()}
     w = el.World()
     booster = Booster(
@@ -911,7 +996,10 @@ def build(params=None, sensors: bool = True) -> tuple[el.World, el.System]:
         world_vel=el.SpatialMotion(),
         inertia=el.SpatialInertia(mass=torch.tensor(m0, dtype=torch.float64), inertia=i0),
     )
-    w.spawn([body, booster], name="Booster")
+    spawn = [body, booster]
+    if sensors:
+        spawn.append(sn.SensorSuite())
+    w.spawn(spawn, name="Booster")
     sys = (
         el.every(GUIDANCE_EVERY_TICKS, guidance,
                  full_rate_when=lambda cols: cols["phase"] >= DESCENT)
@@ -922,6 +1010,8 @@ def build(params=None, sensors: bool = True) -> tuple[el.World, el.System]:
         | attitude_control
         | actuators
         | el.six_dof(sys=effectors, integrator=el.Integrator.SemiImplicit)
-        | contact
     )
+    if sensors:
+        sys = sys | sensor_suite
+    sys = sys | contact
     return w, sys

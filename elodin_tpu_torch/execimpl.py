@@ -5,8 +5,12 @@ The JAX package compiles ``n`` telemetry batches of ``stride`` ticks into
 one program.  Here the same ``build_step`` runs eagerly, tick by tick, in a
 Python loop; the tick count stays a runtime value.  At each telemetry
 boundary the state is copied to the host and appended to ``History``
-synchronously.  Not ported yet: the telemetry pump, lockstep sessions and
-checkpoints.
+synchronously.  The history is the checkpoint: ``state_at`` reads a
+recorded row, ``restore`` rewinds the device state to it and cuts the
+history after it; ``save_checkpoint`` / ``load_checkpoint`` write and read
+the live state as an npz file.  Not ported yet: the telemetry pump,
+lockstep sessions and ``restore_from_db`` (it needs the telemetry
+database).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from . import _config
 from .dataframe import DataFrame
 from .interop import columns_from_numpy, columns_to_numpy
 from .system import build_step
@@ -104,6 +109,22 @@ class History:
         """(n_rows, n_entities, *shape) array for one component."""
         parts = list(self._spills[name]) + self.chunks[name]
         return np.concatenate(parts, axis=0)
+
+    def truncate(self, keep_rows: int) -> None:
+        """Drop every row past the first ``keep_rows`` (the restore path),
+        from the spilled chunks as from the live ones: a spilled chunk
+        that straddles the cut is kept as a view of its first rows."""
+        self.times = self.times[:keep_rows]
+        for name in self.chunks:
+            rows = 0
+            for parts in (self._spills[name], self.chunks[name]):
+                kept = []
+                for part in parts:
+                    if rows < keep_rows:
+                        kept.append(part[:keep_rows - rows])
+                    rows += len(part)
+                parts[:] = kept
+        self._live_bytes = sum(c.nbytes for chunks in self.chunks.values() for c in chunks)
 
     def column_names(self) -> list[str]:
         """Every 'entity.component' of a named entity."""
@@ -246,6 +267,44 @@ class Exec:
         comp, row = self._history.resolve(qualified)
         value = columns_to_numpy({comp: self.cols[comp][row:row + 1]}, self.meta)[comp]
         return np.atleast_1d(value[0])
+
+    # -- checkpoint and resume -------------------------------------------
+
+    def state_at(self, tick: int) -> dict[str, np.ndarray]:
+        """Every component's recorded value at history row ``tick`` (0 is
+        the initial state), as numpy."""
+        if not self.record_history:
+            raise RuntimeError("history recording is disabled")
+        out = {}
+        for name in self.meta.components:
+            series = self._history.series(name)
+            if tick >= len(series):
+                raise IndexError(f"tick {tick} not recorded")
+            out[name] = series[tick]
+        return out
+
+    def restore(self, tick: int) -> None:
+        """Rewind the device state to history row ``tick`` and cut the
+        history after it.  The tick counter comes from the row's recorded
+        time, not from the tick column."""
+        self.cols = columns_from_numpy(self.state_at(tick), self.meta, self.device)
+        restored_time = self._history.times[tick]
+        self._history.truncate(tick + 1)
+        self._tick = int(round(restored_time / self.sim_time_step))
+
+    def save_checkpoint(self, path) -> None:
+        """Write the live state as an npz file, one array per component at
+        its host dtype (u64 and u32 columns as unsigned)."""
+        np.savez(path, **columns_to_numpy(self.cols, self.meta))
+
+    def load_checkpoint(self, path) -> None:
+        """Read the live state back from ``save_checkpoint``'s file (or
+        the JAX package's), each array cast to its column's dtype."""
+        with np.load(path) as data:
+            cols = {k: np.asarray(data[k]).astype(
+                        _config.numpy_column_dtype(k, self.meta.components[k]), copy=False)
+                    for k in self.meta.components}
+        self.cols = columns_from_numpy(cols, self.meta, self.device)
 
     # -- outputs ---------------------------------------------------------
 

@@ -10,9 +10,11 @@ the port's ``WorldMeta``; ``columns_to_numpy`` is its inverse.
 columns, which carry a leading sample axis (``BatchedResult.final`` of
 either package).
 
-Unsigned 64-bit columns (``tick``, edges) are held as int64 on the device:
-torch has no uint64 arithmetic.  Both functions convert, and refuse values
-that int64 cannot hold.
+Unsigned columns are held as int64 on the device: torch has no uint64
+arithmetic, and its uint32 lacks shifts, ``~`` and ``+``.  A u64 column
+(``tick``, edges) holds values up to 2**63 - 1, a u32 column (the
+stablehlo probe's ``hlo_bits``) values in [0, 2**32).  Both functions
+convert, and refuse a value the column's type cannot hold.
 """
 
 from __future__ import annotations
@@ -21,6 +23,12 @@ import numpy as np
 import torch
 
 from . import _config
+
+
+# the unsigned dtypes held as int64 on the device, and the largest value each
+# holds there
+_UNSIGNED_MAX = {np.dtype(np.uint64): np.iinfo(np.int64).max,
+                 np.dtype(np.uint32): np.iinfo(np.uint32).max}
 
 
 def _expected(meta, name: str) -> tuple[tuple[int, ...], np.dtype]:
@@ -50,8 +58,8 @@ def columns_from_numpy(cols: dict, meta, device,
             raise ValueError(f"column {name!r}: shape {v.shape}, expected {shape}")
         if v.dtype != dtype:
             raise ValueError(f"column {name!r}: dtype {v.dtype}, expected {dtype}")
-        if dtype == np.uint64:
-            if v.size and v.max() > np.iinfo(np.int64).max:
+        if dtype in _UNSIGNED_MAX:
+            if v.size and v.max() > _UNSIGNED_MAX[dtype]:
                 raise ValueError(f"column {name!r}: value exceeds int64")
             v = v.astype(np.int64)
         # a copy: the device columns never alias the caller's arrays
@@ -71,14 +79,14 @@ def campaign_columns_from_numpy(cols: dict, meta, device) -> dict[str, torch.Ten
 
 def columns_to_numpy(cols: dict, meta) -> dict[str, np.ndarray]:
     """``{name: tensor}`` -> numpy columns at the dtypes
-    ``columns_from_numpy`` accepts (int64 back to uint64)."""
+    ``columns_from_numpy`` accepts (int64 back to uint64 or uint32)."""
     out = {}
     for name, t in cols.items():
         v = t.detach().cpu().numpy()
         dtype = _expected(meta, name)[1]
-        if dtype == np.uint64:
-            if v.size and v.min() < 0:
-                raise ValueError(f"column {name!r}: negative value for uint64")
-            v = v.astype(np.uint64)
+        if dtype in _UNSIGNED_MAX:
+            if v.size and (v.min() < 0 or v.max() > _UNSIGNED_MAX[dtype]):
+                raise ValueError(f"column {name!r}: value out of range for {dtype}")
+            v = v.astype(dtype)
         out[name] = v
     return out

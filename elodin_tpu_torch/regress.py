@@ -38,6 +38,8 @@ BASELINE_ROOT = os.path.join(REPO, "scripts", "baseline")
 REEXPORTED_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "baseline")
 REEXPORTED = ("drone", "cube-sat")
 DEFAULT_TOL = {"abs": 1e-4, "rel": 1e-4}
+# the seven examples of ``scripts/regress.sh``, in its order
+EXAMPLES = ("ball", "three-body", "stablehlo", "drone", "linalg", "rocket", "cube-sat")
 DEFAULT_TIME_STEP = 1.0 / 120.0
 # the stored baselines' length (``scripts/regress.sh``): 241 rows, tick 0
 # and 240 ticks at 120 Hz
@@ -47,18 +49,22 @@ TICKS = 240
 def baselined_examples() -> dict:
     """Example name (as under ``scripts/baseline``) -> its module with
     ``build_world`` and ``build_system``."""
+    from .examples.ball import sim as ball
     from .examples.cube_sat import main as cube_sat
     from .examples.drone import main as drone
+    from .examples.linalg import main as linalg
     from .examples.rocket import main as rocket
+    from .examples.stablehlo import sim as stablehlo
     from .examples.three_body import main as three_body
 
-    return {"three-body": three_body, "rocket": rocket, "drone": drone, "cube-sat": cube_sat}
+    return {"ball": ball, "three-body": three_body, "stablehlo": stablehlo, "drone": drone,
+            "linalg": linalg, "rocket": rocket, "cube-sat": cube_sat}
 
 
 def simulation_rate(mod) -> float:
     """The rate the stored baselines ran an example at: ``1 /
-    SIM_TIME_STEP``, or 120 Hz for a module without one (the drone), as
-    ``scripts/export_example.py`` runs it."""
+    SIM_TIME_STEP``, or 120 Hz for a module without one (the drone, the
+    stablehlo probe), as ``scripts/export_example.py`` runs it."""
     return 1.0 / getattr(mod, "SIM_TIME_STEP", DEFAULT_TIME_STEP)
 
 
@@ -197,8 +203,7 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Telemetry regression gate of the port's examples")
-    ap.add_argument("examples", nargs="*",
-                    default=["three-body", "rocket", "drone", "cube-sat"])
+    ap.add_argument("examples", nargs="*", default=list(EXAMPLES))
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
     for ex in a.examples:

@@ -5,6 +5,9 @@ The same tick program (``system.build_step``) runs from the same world
 snapshot on two torch devices, and the states are diffed under allclose
 semantics: ``verify_step`` after one tick, ``verify_trajectory`` after
 ``ticks`` ticks (the "trajectories matching CPU to 1e-6" gate).
+``checkpoint_first_tick`` saves an ``Exec``'s tick-0 inputs and tick-1
+outputs for offline diffing when ``ELODIN_TPU_DEBUG_DIR`` is set; its tick
+is one eager step, where the JAX package jits it.
 
 The pair of devices is explicit: ``devices=(reference, test)``, by default
 ``("cpu", "cuda")``.  Where the JAX package finds no accelerator it quietly
@@ -14,7 +17,10 @@ determinism check asks for ``devices=("cpu", "cpu")``.
 
 from __future__ import annotations
 
+import json
 import math
+import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -23,6 +29,7 @@ from .interop import columns_from_numpy, columns_to_numpy
 from .system import build_step
 
 DEFAULT_DEVICES = ("cpu", "cuda")
+DEBUG_DIR_ENV = "ELODIN_TPU_DEBUG_DIR"
 
 
 def _device(name) -> torch.device:
@@ -113,3 +120,25 @@ def verify_trajectory(world, system, ticks: int = 100, rtol: float = 1e-6,
     }
     _assert_tol(cols_report, rtol, atol)
     return report
+
+
+def checkpoint_first_tick(exec_) -> str | None:
+    """With ``ELODIN_TPU_DEBUG_DIR`` set, write ``tick0_inputs.npz`` (the
+    Exec's current state), ``tick1_outputs.npz`` (one tick of its step
+    from there; the Exec itself does not advance) and ``manifest.json``
+    (component names and shapes) there, and return the directory; else
+    None."""
+    debug_dir = os.environ.get(DEBUG_DIR_ENV)
+    if not debug_dir:
+        return None
+    out = Path(debug_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    inputs = columns_to_numpy(exec_.cols, exec_.meta)
+    np.savez(out / "tick0_inputs.npz", **inputs)
+    outputs = columns_to_numpy(exec_._step(dict(exec_.cols)), exec_.meta)
+    np.savez(out / "tick1_outputs.npz", **outputs)
+    (out / "manifest.json").write_text(json.dumps(
+        {"components": sorted(inputs),
+         "shapes": {k: list(v.shape) for k, v in inputs.items()}},
+        indent=2))
+    return str(out)

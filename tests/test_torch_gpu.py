@@ -335,3 +335,87 @@ def test_csv_gate_on_the_card(cuda, example):
     exec_, _, n, worst = regress.check(example, device="cuda")
     assert exec_.cols["world_pos"].device.type == "cuda" and exec_.tick() == regress.TICKS
     assert n == {"drone": 33, "cube-sat": 56}[example] and worst <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# JAX's threefry, the ball, linalg and stablehlo examples, the falcon9
+# sensors and checkpoints (eager PyTorch ops, no hand kernel)
+#
+# Stated tolerance: threefry words and uniforms bit for bit, the card
+# against the CPU; normals within 3 ulps in f32 and 8 in f64 (the card's
+# erfinv is CUDA's, documented at 2 and 5 ulps; the CPU's is within 1 and 3
+# ulps of a correctly rounded one); the CSV gate on the card (abs or
+# rel 1e-4 against scripts/baseline); falcon9 with sensors,
+# verify_trajectory's allclose(1e-6, 1e-6) and max |Δ|/(1+|x|) ≤ 1e-6 under
+# f64 and the mixed policy; checkpoints bitwise.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 20170814, 2**32 + 5, -7])
+def test_threefry_on_the_card_matches_the_cpu(cuda, seed):
+    from elodin_tpu_torch.ops import threefry as tf
+
+    def draws(device):
+        key = tf.key(torch.tensor(seed, dtype=torch.int64, device=device))
+        data = torch.tensor([-1, 0, 6, 2**31 - 1], dtype=torch.int32, device=device)
+        return ([key, tf.fold_in(key, data), tf.split(key, 4), tf.bits(key, (4099,)),
+                 *tf.bits(key, (4099,), 64), tf.uniform(key, (4099,), torch.float32),
+                 tf.uniform(key, (4099,), torch.float64)],
+                [tf.normal(key, (4099,), dtype) for dtype in (torch.float32, torch.float64)])
+
+    (words, normals), (ref_words, ref_normals) = draws(cuda), draws("cpu")
+    for ours, ref in zip(words, ref_words):
+        assert torch.equal(ours.cpu(), ref)
+    for ours, ref in zip(normals, ref_normals):
+        ulp = torch.as_tensor(np.spacing(np.abs(ref.numpy())))
+        bound = {torch.float32: 3, torch.float64: 8}[ref.dtype]
+        assert ((ours.cpu() - ref).abs() <= bound * ulp).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("example", ["ball", "linalg", "stablehlo"])
+def test_baselined_examples_csv_gate_on_the_card(cuda, example):
+    from elodin_tpu_torch import regress
+
+    before = (sk.LAUNCHES, pw.LAUNCHES)
+    exec_, _, n, worst = regress.check(example, device="cuda")
+    assert exec_.cols["tick"].device.type == "cuda" and exec_.tick() == regress.TICKS
+    assert n == {"ball": 9, "linalg": 10, "stablehlo": 6}[example] and worst <= 1.0
+    assert (sk.LAUNCHES, pw.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["f64", "mixed"])
+def test_falcon9_with_sensors_card_vs_cpu(cuda, policy):
+    import elodin_tpu_torch as el
+    from elodin_tpu_torch import _config
+    from elodin_tpu_torch.examples.falcon9 import sim
+
+    prev = _config._FLOAT_POLICY
+    el.set_float_policy(policy)
+    try:
+        world, system = sim.build(None)
+        report = verify.verify_trajectory(world, system, ticks=100,
+                                          simulation_rate=sim.SIM_RATE_HZ)
+    finally:
+        el.set_float_policy(prev)
+    assert report["_summary"]["metric_rel"] <= 1e-6
+
+
+@pytest.mark.gpu
+def test_checkpoint_restore_on_the_card(cuda, tmp_path):
+    from elodin_tpu_torch.examples.stablehlo import sim
+
+    exec_ = sim.build_world().build(sim.build_system(), device="cuda")
+    exec_._history.max_bytes = 2000  # spill, so restore cuts spilled chunks
+    exec_._history._spool_dir = str(tmp_path / "spool")
+    exec_.run(30)
+    first = {k: v.clone() for k, v in exec_.cols.items()}
+    exec_.save_checkpoint(tmp_path / "state.npz")
+    exec_.restore(10)
+    exec_.run(20)
+    assert all(torch.equal(first[k], exec_.cols[k]) for k in first)
+    exec_.run(5)
+    exec_.load_checkpoint(tmp_path / "state.npz")
+    assert all(torch.equal(first[k], exec_.cols[k]) for k in first)

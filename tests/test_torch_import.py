@@ -44,6 +44,13 @@ PORT_MODULES = [
     "elodin_tpu_torch.gravity.egm08_coeffs",
     "elodin_tpu_torch.verify",
     "elodin_tpu_torch.regress",
+    "elodin_tpu_torch.ops.threefry",
+    "elodin_tpu_torch.linalg",
+    "elodin_tpu_torch.sensors",
+    "elodin_tpu_torch.examples.ball.sim",
+    "elodin_tpu_torch.examples.linalg.main",
+    "elodin_tpu_torch.examples.stablehlo.sim",
+    "elodin_tpu_torch.examples.falcon9.sensors",
 ]
 
 
