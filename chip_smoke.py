@@ -147,9 +147,9 @@ beside any of them:
     ticks, allclose(1e-6, 1e-6): max |Δ|/(1+|x|) and the worst columns.
 21. the real-time factor (simulated seconds over wall seconds) of each,
     built as ``bench.py``'s RTF leg builds it (``SIMULATION_RATE`` or ``1 /
-    SIM_TIME_STEP``, no history), run ``RTF_TICKS`` ticks (drone 300 at
+    SIM_TIME_STEP``, no history), run ``RTF_TICKS`` ticks (drone 60 at
     300 Hz, cut from bench.py's 1200 to keep the script inside its time;
-    cube-sat 240 at 120 Hz) after a 30-tick warm-up,
+    cube-sat 60 at 120 Hz, cut from 240) after a 30-tick warm-up,
     ``RTF_REPEATS`` times on the card and as often on the CPU with the same
     port: the median, min and max, and ms per tick.
 22. the device trace of each on the card (device ops per tick, busy time,
@@ -177,13 +177,15 @@ must read 0 after it), in f64 unless named:
     (every column of ``scripts/baseline/<example>``, vector cells parsed,
     abs or rel 1e-4), then ``verify_trajectory``, the card against the CPU,
     100 ticks, then the real-time factor on the card and on the CPU
-    (``RTF_TICKS``: ball 600 ticks, cut from bench.py's 2400; stablehlo
-    1200; linalg 600), the device trace and a cProfile of the host.
+    (``RTF_TICKS``: ball 120 ticks, cut from bench.py's 2400; stablehlo
+    300, cut from 1200; linalg 150, cut from 600), the device trace and a
+    cProfile of the host.
 26. falcon9 with its sensors (``build(None)``): ``verify_trajectory``, the
     card against the CPU, 100 ticks, under f64 (the JAX bench's leg) and
     under the mixed policy at max |Δ|/(1+|x|) ≤ 1e-6 (its mixed leg); then
     ``Exec.run`` of the mission with and without sensors on the card (no
-    history): ms/tick over 100 ticks, device ops per tick and idle share,
+    history): ms/tick over 50 ticks (cut from 100), device ops per tick and
+    idle share,
     and a cProfile of the tick with sensors.
 27. Exec checkpoints on the card, on falcon9 with sensors and a history
     small enough to spill to its spool: 30 ticks, ``restore(10)`` (the
@@ -192,7 +194,48 @@ must read 0 after it), in f64 unless named:
     ``save_checkpoint`` then ``load_checkpoint`` after 5 more ticks,
     bitwise; ``verify.checkpoint_first_tick`` writes its three files.
 
-28. a JSON line of the kernels (time, plain version's time and bound at
+The sim's own entry points: the CLI, lockstep, the telemetry pump and the
+process-per-sample campaign (eager PyTorch ops; no hand kernel: both
+kernels' launch counts are set to 0 before each of phases 28-31 and must
+read 0 after it, in this process; the children of phases 28 and 31 run
+the same code).  Every child is started with ``subprocess`` from this
+process (never a fork of it), and a nonzero exit fails the script; each
+timed figure is taken 3 times (median and spread):
+
+28. the CLI on the card: ``python -m elodin_tpu_torch.examples.drone.main
+    bench --ticks 300`` and ``python -m
+    elodin_tpu_torch.examples.cube_sat.main bench --ticks 240``, 3 children
+    each: the printed tick time and RTF beside phase 21's in-process RTF;
+    each child's wall split into the interpreter's start, the torch and
+    port import and the CUDA initialisation (one probe child) and the
+    ticks (the printed tick time); ``components`` of the drone (run by the
+    probe child as ``python -m`` runs it) parses and names every file of
+    its CSV baseline.
+29. lockstep at the betaflight-sitl hover's 1 kHz
+    (``examples.betaflight_sitl``): ``run(ticks=4000)`` pipelined with the
+    ``controller.py`` process, strict at 1000 ticks, and
+    ``run_batched(trips=40, hold=64)``, on the card and on the CPU: Hz,
+    missed replies and the altitude held within 0.5 m (the gate); then the
+    session on the card against the CPU for the same 50 commands at hold 1
+    and 4, within 1e-12.
+30. the telemetry pump on the card: the cube-sat, 240 ticks in 3 windows
+    of 80, without history, with history through the pump and through the
+    synchronous path (``Exec._sync_history``), the windows interleaved:
+    ms per tick of the step loop and of the pump's drain after it; the two
+    histories bitwise equal (the gate); the pump's stall count; a device
+    trace of 10 ticks with history: device ops per tick and idle share.
+31. the process campaign on the card: ``monte_carlo.run_campaign`` on
+    ``examples/monte_carlo/main.py``, 8 landing samples (LHS seed 0, the
+    five dispersions) at the full 2400 ticks, 4 workers,
+    ``device="cuda"``; then rows 0-3 of the same plan with ``device="cpu"``
+    (a resume that lists rows 4-7 as done).  Every run valid; each card
+    sample's ``touchdown_vz`` and ``landing_offset`` within 1e-9 of the
+    CPU's from the same row; the campaign's wall, each run's ``wall_s``,
+    RTF and start-up share (``perf.csv``), the peak RSS
+    (``resources.csv``) and the card's memory in use while it ran
+    (nvidia-smi); samples/s beside phase 18's batched campaign.
+
+32. a JSON line of the kernels (time, plain version's time and bound at
     the main path's width, launches on the main path; no PyTorch call
     computes either function, so ``library_ms`` is null), then the last
     line ``{"ok": true, "device": {...}}``.
@@ -261,10 +304,12 @@ ROCKETS, ROCKET_TICKS, ROCKET_CPU_SAMPLES, EX_TOL = 1024, 240, 8, 1e-9
 # the profiler's post-processing grows with the events
 ROCKET_TRACE_TICKS = 2
 MC_SAMPLES, MC_TICKS, MC_CPU_SAMPLES, MC_FRAC_SLACK = 10000, 2400, 64, 5
-# bench.py's RTF run lengths of the single-entity sims, and the repeats
-# (the drone cut from 1200 and the ball from 2400 ticks to keep the script
-# inside its time)
-RTF_TICKS = {"drone": 300, "cube-sat": 240, "ball": 600, "stablehlo": 1200, "linalg": 600}
+# the RTF run lengths of the single-entity sims, and the repeats: bench.py's
+# cut in depth to keep the script inside its time (drone 1200 -> 60,
+# cube-sat 240 -> 60, ball 2400 -> 120, stablehlo 1200 -> 300, linalg
+# 600 -> 150; phase 28 runs the drone and the cube-sat through the CLI at
+# 300 and 240 ticks)
+RTF_TICKS = {"drone": 60, "cube-sat": 60, "ball": 120, "stablehlo": 300, "linalg": 150}
 RTF_REPEATS = 3
 RTF_WARMUP_TICKS = 30
 SINGLE_TRACE_TICKS = 10
@@ -275,13 +320,38 @@ THREEFRY_COUNTERS, THREEFRY_CORNER_COUNTERS = 10**6, 1000
 # (tests/test_torch_threefry.py holds it against scipy's)
 NORMAL_ULPS = {torch.float32: 3, torch.float64: 8}
 NOISE_CALLS = 50
-F9_SENSOR_TICKS, F9_MIXED_TOL = 100, 1e-6
+F9_SENSOR_TICKS, F9_MIXED_TOL = 50, 1e-6
 CKPT_TICKS, CKPT_RESTORE, CKPT_MORE = 30, 10, 5
 # history bytes before a spill, small enough that phase 27's run spills
 CKPT_HISTORY_BYTES = 16 << 10
 # the JAX package's landing campaign, examples/monte-carlo/batched.py
 # run_campaign(10000, 2400, seed=0), run on a CPU (JAX_PLATFORMS=cpu, f64)
 JAX_MC_LANDED_FRAC, JAX_MC_SOFT_FRAC = 0.9759, 0.9401
+REPO = os.path.dirname(os.path.abspath(__file__))
+REPEATS = 3  # of each timed figure of phases 28-31
+# phase 28: each CLI child (module, bench ticks), the examples' own sizes
+CLI_BENCH = {"drone": ("elodin_tpu_torch.examples.drone.main", 300),
+             "cube-sat": ("elodin_tpu_torch.examples.cube_sat.main", 240)}
+CHILD_TIMEOUT_S = 300
+# a child that imports torch and the port, initialises CUDA, runs the
+# drone's ``components`` as ``python -m`` would, and prints the seconds of
+# each part on its last line
+STARTUP_PROBE = (
+    "import time; t0 = time.perf_counter(); import torch, elodin_tpu_torch; "
+    "t1 = time.perf_counter(); torch.zeros(1, device='cuda'); torch.cuda.synchronize(); "
+    "t2 = time.perf_counter(); import json, runpy, sys; "
+    "sys.argv = [sys.argv[0], 'components']; "
+    f"runpy.run_module('{CLI_BENCH['drone'][0]}', run_name='__main__', alter_sys=True); "
+    "print(json.dumps({'import_s': t1 - t0, 'cuda_init_s': t2 - t1, "
+    "'components_s': time.perf_counter() - t2}))")
+# phase 29: the betaflight-sitl hover at its 1 kHz plant rate
+SITL_TICKS, SITL_STRICT_TICKS, SITL_TRIPS, SITL_HOLD = 4000, 1000, 40, 64
+SESSION_COMMANDS, SESSION_TOL = 50, 1e-12
+# phase 30: the cube-sat with history, 3 windows of 80 ticks a mode
+PUMP_WINDOW_TICKS, PUMP_WARMUP_TICKS = 80, 10
+# phase 31: the process campaign of the landing sim
+CAMPAIGN_SAMPLES, CAMPAIGN_CPU_SAMPLES, CAMPAIGN_WORKERS = 8, 4, 4
+CAMPAIGN_TIMEOUT_S = 900
 
 
 _START = time.perf_counter()
@@ -1007,7 +1077,8 @@ def _landing_cpu_reference(draws, ticks):
 
 def _examples(el):
     """Phases 14-18: the rocket, three-body and landing Monte Carlo
-    examples and falcon9 through verify (no hand kernel)."""
+    examples and falcon9 through verify (no hand kernel); returns phase
+    18's rollouts/s."""
     from elodin_tpu_torch import regress
     from elodin_tpu_torch.examples.falcon9 import sim as f9_sim
     from elodin_tpu_torch.examples.monte_carlo import batched as mc
@@ -1041,8 +1112,9 @@ def _examples(el):
 
     _batched_rocket(el, rocket_ref)
     _clock("phase 17")
-    _landing(el, landing_ref)
+    rollouts_per_s = _landing(el, landing_ref)
     _clock("phase 18")
+    return rollouts_per_s
 
 
 def _batched_rocket(el, cpu_ref):
@@ -1116,6 +1188,7 @@ def _landing(el, cpu_ref):
     _hold(f"landing campaign card vs CPU, first {n} samples x {MC_TICKS} ticks from the same "
           f"draws (CPU run {cpu_s:.2f} s; landed and soft flags equal)", errs, EX_TOL)
     _trace_and_profile(f"landing campaign ({MC_SAMPLES} samples, f64", campaign)
+    return result.rollouts_per_second
 
 
 def _rtf_exec(el, mod, device):
@@ -1170,6 +1243,7 @@ def _rtf_trace_profile(el, examples):
     on the card."""
     from elodin_tpu_torch import regress
 
+    rtfs = {}
     for example in examples:
         mod = regress.baselined_examples()[example]
         card, card_rtf = _no_launches(f"{example} RTF on the card",
@@ -1181,6 +1255,8 @@ def _rtf_trace_profile(el, examples):
         _clock(f"RTF, {example}")
         _trace_exec(f"{example} on the card (f64, Exec.run({SINGLE_TRACE_TICKS}), no history)",
                     card)
+        rtfs[example] = card_rtf, cpu_rtf
+    return rtfs
 
 
 def _trace_exec(label, exec_):
@@ -1196,7 +1272,8 @@ def _trace_exec(label, exec_):
 
 
 def _single_entity(el):
-    """Phases 19-23: the drone and the cube-sat (no hand kernel)."""
+    """Phases 19-23: the drone and the cube-sat (no hand kernel); returns
+    the real-time factors of phase 21, ``{example: (card, cpu)}``."""
     from elodin_tpu_torch import regress
 
     examples = ("drone", "cube-sat")
@@ -1211,7 +1288,7 @@ def _single_entity(el):
         _verify(example, mod.build_world(), mod.build_system(), regress.simulation_rate(mod))
     _clock("phase 20, verify")
     # 21. real-time factor on the card and on the CPU; 22. trace and profile
-    _rtf_trace_profile(el, examples)
+    rtfs = _rtf_trace_profile(el, examples)
     _clock("phases 21-22")
     # 23. card facts
     try:
@@ -1220,6 +1297,7 @@ def _single_entity(el):
     except ImportError as e:
         arrow = f"pyarrow does not import ({e})"
     print(f"card facts: torch.cuda.device_count() {torch.cuda.device_count()}; {arrow}")
+    return rtfs
 
 
 def _ulps(ref, ours) -> float:
@@ -1376,6 +1454,7 @@ def _checkpoints(el):
     tmp = tempfile.mkdtemp(prefix="chip-smoke-checkpoint-")
     try:
         _no_launches(f"falcon9 Exec.run({CKPT_TICKS})", lambda: exec_.run(CKPT_TICKS))
+        exec_.flush_telemetry()  # the spill count is read from the history
         first = {k: v.clone() for k, v in exec_.cols.items()}
         spills = len(exec_._history._spills["world_pos"])
         path = os.path.join(tmp, "state.npz")
@@ -1387,6 +1466,7 @@ def _checkpoints(el):
         _no_launches(f"falcon9 Exec.run({CKPT_TICKS - CKPT_RESTORE}) after restore",
                      lambda: exec_.run(CKPT_TICKS - CKPT_RESTORE))
         rerun = [k for k in first if not torch.equal(first[k], exec_.cols[k])]
+        exec_.flush_telemetry()
         rows = len(exec_._history.series("world_pos"))
         if rerun or rows != CKPT_TICKS + 1:
             raise AssertionError(f"after restore and re-run: {rows} rows, differing {rerun}")
@@ -1411,6 +1491,299 @@ def _checkpoints(el):
         shutil.rmtree(tmp, ignore_errors=True)
         if exec_._history._spool_dir:
             shutil.rmtree(exec_._history._spool_dir, ignore_errors=True)
+
+
+def _spread(values):
+    """'median M (min a, max b, spread s of the median)' of a list."""
+    med = statistics.median(values)
+    return (f"median {med:.4g} (min {min(values):.4g}, max {max(values):.4g}, spread "
+            f"{(max(values) - min(values)) / med:.1%} of the median)")
+
+
+def _child(args, label, timeout=CHILD_TIMEOUT_S):
+    """(stdout, wall seconds) of ``python args`` from the repo root, the
+    package on its path; raises on a nonzero exit."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                                                  else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable] + args, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return proc.stdout, wall
+
+
+def _bench_figures(out):
+    """(tick ms, build ms, RTF) of the three lines ``bench`` prints."""
+    import re
+
+    found = [re.search(pattern, out, re.M) for pattern in (
+        r"^= tick time: +([\d.]+) ms \(batch of \d+ ticks\)$", r"^build time: +([\d.]+) ms$",
+        r"^real_time_factor: +([\d.]+)$")]
+    if not all(found):
+        raise AssertionError(f"bench printed no three lines:\n{out}")
+    return tuple(float(m.group(1)) for m in found)
+
+
+def _cli_phase(single_rtfs):
+    """Phase 28: the drone and the cube-sat through ``bench`` in child
+    processes on the card, beside phase 21's in-process RTF; the start-up
+    split; the drone's ``components`` against its CSV baseline."""
+    from elodin_tpu_torch import regress
+
+    out, probe_wall = _child(["-c", STARTUP_PROBE], "start-up probe")
+    components, last = out.rstrip("\n").rsplit("\n", 1)
+    probe = json.loads(last)
+    interp_s = probe_wall - probe["import_s"] - probe["cuda_init_s"] - probe["components_s"]
+    print(f"CLI start-up probe child: {probe_wall:.3f} s, of which the interpreter's start and "
+          f"exit {interp_s:.3f} s, import torch and elodin_tpu_torch {probe['import_s']:.3f} s, "
+          f"CUDA initialisation {probe['cuda_init_s']:.3f} s, the drone's components "
+          f"{probe['components_s']:.3f} s")
+    for example, (module, ticks) in CLI_BENCH.items():
+        runs = []
+        for _ in range(REPEATS):
+            out, wall = _no_launches(f"{example} CLI bench child", lambda: _child(
+                ["-m", module, "bench", "--ticks", str(ticks)], f"{example} bench"))
+            runs.append((wall,) + _bench_figures(out))
+        walls, tick_ms, build_ms, rtfs = (list(col) for col in zip(*runs))
+        card_rtf, cpu_rtf = single_rtfs[example]
+        med_wall, med_tick = statistics.median(walls), statistics.median(tick_ms)
+        ticks_s = med_tick * ticks / 1e3
+        rest = med_wall - interp_s - probe["import_s"] - probe["cuda_init_s"] - ticks_s
+        print(f"CLI {example} on the card (python -m {module} bench --ticks {ticks}, {REPEATS} "
+              f"children, exit 0): tick time {_spread(tick_ms)} ms, RTF {_spread(rtfs)}; "
+              f"in-process RTF of phase 21 (Exec.run({RTF_TICKS[example]}), no history) "
+              f"card {statistics.median(card_rtf):.4g}, CPU {statistics.median(cpu_rtf):.4g}; "
+              f"build {statistics.median(build_ms):.4g} ms")
+        print(f"CLI {example} child wall {_spread(walls)} s; at the median: interpreter "
+              f"{interp_s:.3f} s, import {probe['import_s']:.3f} s, CUDA initialisation "
+              f"{probe['cuda_init_s']:.3f} s (the probe child's), ticks {ticks_s:.3f} s "
+              f"({ticks_s / med_wall:.1%}), the rest (world, build, exit) {rest:.3f} s")
+    columns = {f"{entity}.{c['name']}" for c in json.loads(components)
+               for entity in c["entities"]}
+    baseline = sorted(f[:-len(".csv")] for f in os.listdir(regress.baseline_dir("drone"))
+                      if f.endswith(".csv"))
+    missing = [b for b in baseline if b not in columns]
+    print(f"CLI drone components: {len(columns)} entity.component columns; every one of the "
+          f"{len(baseline)} files of its CSV baseline named: {not missing}")
+    if missing:
+        raise AssertionError(f"drone components lacks baseline columns {missing}")
+
+
+def _lockstep_phase():
+    """Phase 29: the betaflight-sitl hover at 1 kHz, pipelined, strict and
+    batched, on the card and on the CPU; then the session on the card
+    against the CPU."""
+    from elodin_tpu_torch.examples.betaflight_sitl import main as sitl
+
+    for device in ("cuda", "cpu"):
+        cases = (
+            ("pipelined", f"run(ticks={SITL_TICKS})", "hz",
+             lambda st: sitl.run(ticks=SITL_TICKS, device=device, stats=st)),
+            ("strict", f"run(ticks={SITL_STRICT_TICKS}, pipeline=False)", "hz",
+             lambda st: sitl.run(ticks=SITL_STRICT_TICKS, pipeline=False, device=device,
+                                 stats=st)),
+            ("batched", f"run_batched(trips={SITL_TRIPS}, hold={SITL_HOLD})", "plant_hz",
+             lambda st: sitl.run_batched(trips=SITL_TRIPS, hold=SITL_HOLD, device=device,
+                                         stats=st)),
+        )
+        for mode, call, key, fn in cases:
+            runs = []
+            for _ in range(REPEATS):
+                stats = {}
+                _no_launches(f"lockstep {mode} on {device}", lambda: fn(stats))
+                runs.append(stats)
+            hz = [r[key] for r in runs]
+            extra = (f"control (exchanges/s) {_spread([r['control_hz'] for r in runs])}"
+                     if mode == "batched" else
+                     f"missed replies {[r['missed'] for r in runs]}, stale {[r['stale'] for r in runs]}")
+            print(f"lockstep {mode} on {device} ({call}, 1 kHz plant, {REPEATS} runs): "
+                  f"{'plant ' if mode == 'batched' else ''}Hz {_spread(hz)}; {extra}; altitude "
+                  f"{[round(r['z'], 4) for r in runs]} m (each within 0.5 m of 2 m); real time at "
+                  f"1 kHz: {'yes' if statistics.median(hz) >= sitl.SIM_RATE else 'no'}")
+    worst = 0.0
+    for hold in (1, 4):
+        sessions = {dev: sitl.build(dev).lockstep_session(sitl.SEND, sitl.RECV, hold_ticks=hold)
+                    for dev in ("cuda", "cpu")}
+        for cmd in np.random.default_rng(3).uniform(0.0, 20.0, SESSION_COMMANDS):
+            outs = {}
+            for dev, session in sessions.items():
+                session.cmd_bufs["thrust_cmd"][0] = cmd
+                outs[dev] = session.tick()
+            worst = max(worst, float(np.abs(outs["cuda"] - outs["cpu"]).max()))
+    print(f"lockstep session on the card vs the CPU ({SESSION_COMMANDS} commands at hold 1 and "
+          f"4): max |Δ| {worst:.3e} (tol {SESSION_TOL:g})")
+    if not worst <= SESSION_TOL:
+        raise AssertionError(f"lockstep session card vs CPU {worst:.3e}")
+
+
+def _pump_phase(el):
+    """Phase 30: the cube-sat's tick without history, through the pump and
+    through the synchronous path; the histories bitwise; the stalls; a
+    device trace with history."""
+    from elodin_tpu_torch.examples.cube_sat import main as cube
+
+    el.set_float_policy("f64")
+    modes = {"no history": (False, False), "pump": (True, False), "synchronous": (True, True)}
+    execs = {}
+    for mode, (history, sync) in modes.items():
+        ex = cube.build_world().build(cube.build_system(), simulation_rate=1.0 / cube.SIM_TIME_STEP,
+                                      device="cuda")
+        ex.record_history, ex._sync_history = history, sync
+        ex.run(PUMP_WARMUP_TICKS)
+        ex.flush_telemetry()
+        execs[mode] = ex
+    loop = {m: [] for m in modes}
+    drain = {m: [] for m in modes}
+    for _ in range(REPEATS):
+        for mode, ex in execs.items():
+            def window():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ex.run(PUMP_WINDOW_TICKS)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ex.flush_telemetry()
+                return t1 - t0, time.perf_counter() - t1
+
+            loop_s, drain_s = _no_launches(f"cube-sat {mode} window", window)
+            loop[mode].append(loop_s / PUMP_WINDOW_TICKS * 1e3)
+            drain[mode].append(drain_s / PUMP_WINDOW_TICKS * 1e3)
+    ticks = PUMP_WARMUP_TICKS + REPEATS * PUMP_WINDOW_TICKS
+    for mode in modes:
+        print(f"cube-sat on the card, {mode} (f64, {REPEATS} windows of {PUMP_WINDOW_TICKS} "
+              f"ticks, interleaved): step loop {_spread(loop[mode])} ms/tick; the pump's drain "
+              f"after it {_spread(drain[mode])} ms/tick")
+        _all_finite(f"cube-sat {mode}", execs[mode])
+    pump, sync = execs["pump"], execs["synchronous"]
+    rows = {}
+    for mode in ("pump", "synchronous"):
+        h = execs[mode]._history
+        rows[mode] = h.times, {k: h.series(k) for k in execs[mode].meta.components}
+    differ = [k for k in rows["synchronous"][1]
+              if not np.array_equal(rows["pump"][1][k], rows["synchronous"][1][k])]
+    same_times = rows["pump"][0] == rows["synchronous"][0]
+    print(f"cube-sat histories, pump vs synchronous ({ticks} ticks, {len(rows['pump'][0])} rows, "
+          f"{len(differ)} of {len(rows['pump'][1])} components differ; times equal: {same_times}); "
+          f"the pump's stalls {pump._pump.stalls} (queue of {pump._pump.q.maxsize}), its "
+          f"copy time {pump.profiler.copy_s / ticks * 1e3:.4g} ms/tick on the writer thread, the "
+          f"synchronous path's {sync.profiler.copy_s / ticks * 1e3:.4g} ms/tick on the step loop")
+    if differ or not same_times:
+        raise AssertionError(f"the pump's history differs from the synchronous path's: {differ}")
+    ops, busy, wall = _no_launches("cube-sat pump trace", lambda: _device_trace(
+        lambda: (pump.run(SINGLE_TRACE_TICKS), pump.flush_telemetry())))
+    n = SINGLE_TRACE_TICKS
+    print(f"device trace, cube-sat on the card with history through the pump (Exec.run({n}) and "
+          f"the drain): {ops / n:.1f} device ops/tick, device busy {busy / n:.4g} ms/tick, wall "
+          f"{wall / n:.4g} ms/tick, idle share {1 - busy / wall:.2%}")
+
+
+class _CardMemory:
+    """The card's memory in use (nvidia-smi), sampled every second on a
+    thread while a campaign runs: the largest reading and the first."""
+
+    def __init__(self):
+        import threading
+
+        self.readings = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=30).stdout
+            self.readings.append(float(out.split()[0]))
+            if self._stop.wait(1.0):
+                return
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=60)
+        return self.readings[0], max(self.readings)
+
+
+def _process_campaign_phase(batched_rollouts_per_s):
+    """Phase 31: the landing sim as a process campaign on the card, then
+    the same plan's first rows on the CPU."""
+    import csv
+    import shutil
+    import tempfile
+
+    from elodin_tpu_torch.examples.monte_carlo import main as landing
+    from elodin_tpu_torch.monte_carlo import run_campaign
+
+    config = {"monte_carlo": {
+        "n_samples": CAMPAIGN_SAMPLES, "seed": 0,
+        "variables": {k: {"dist": "uniform", "min": p.min, "max": p.max}
+                      for k, p in landing.PARAMS.items()}}}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-campaign-")
+    try:
+        card_dir, cpu_dir = os.path.join(tmp, "card"), os.path.join(tmp, "cpu")
+        memory = _CardMemory()
+        t0 = time.perf_counter()
+        card = _no_launches("process campaign on the card", lambda: run_campaign(
+            landing.__file__, config, card_dir, workers=CAMPAIGN_WORKERS,
+            timeout=CAMPAIGN_TIMEOUT_S, device="cuda"))
+        card_wall = time.perf_counter() - t0
+        mem_before, mem_peak = memory.stop()
+        # rows 0-3 of the same plan on the CPU: a resume whose manifest lists
+        # rows 4-7 as done
+        os.makedirs(cpu_dir)
+        done = [f"{i:06d}" for i in range(CAMPAIGN_CPU_SAMPLES, CAMPAIGN_SAMPLES)]
+        with open(os.path.join(cpu_dir, "campaign.manifest.json"), "w") as f:
+            json.dump({"completed": done}, f)
+        t0 = time.perf_counter()
+        cpu = run_campaign(landing.__file__, config, cpu_dir, workers=CAMPAIGN_WORKERS,
+                           timeout=CAMPAIGN_TIMEOUT_S, resume=True, device="cpu")
+        cpu_wall = time.perf_counter() - t0
+        for label, records, n in (("card", card, CAMPAIGN_SAMPLES),
+                                  ("CPU", cpu, CAMPAIGN_CPU_SAMPLES)):
+            bad = [r for r in records if not r.get("valid") or r.get("ticks") != MC_TICKS]
+            if len(records) != n or bad:
+                raise AssertionError(f"process campaign on the {label}: {len(records)} records, "
+                                     f"invalid {bad}")
+        by_row = {r["run_id"]: r for r in card}
+        worst = 0.0
+        for r in cpu:
+            c = by_row[r["run_id"]]
+            for key in ("result.touchdown_vz", "result.landing_offset"):
+                d = abs(c[key] - r[key]) / max(1.0, abs(r[key]))
+                worst = max(worst, d)
+        print(f"process campaign ({CAMPAIGN_SAMPLES} landing samples x {MC_TICKS} ticks, "
+              f"{CAMPAIGN_WORKERS} workers, device cuda; rows 0-{CAMPAIGN_CPU_SAMPLES - 1} again "
+              f"on the CPU): every run valid; touchdown_vz and landing_offset, card vs CPU from "
+              f"the same row, max |Δ|/max(1, |x|) {worst:.3e} (tol {EX_TOL:g}); soft "
+              f"{sum(bool(r['result.soft']) for r in card)} of {len(card)}")
+        if not worst <= EX_TOL:
+            raise AssertionError(f"process campaign card vs CPU {worst:.3e}")
+        for label, out_dir, records, wall in (("card", card_dir, card, card_wall),
+                                              ("CPU", cpu_dir, cpu, cpu_wall)):
+            with open(os.path.join(out_dir, "perf.csv")) as f:
+                perf = list(csv.DictReader(f))
+            walls = [float(p["wall_s"]) for p in perf]
+            rtfs = [float(p["real_time_factor"]) for p in perf]
+            loop_s = [MC_TICKS * DT / rtf for rtf in rtfs]
+            startup = [(w - s) / w for w, s in zip(walls, loop_s)]
+            with open(os.path.join(out_dir, "resources.csv")) as f:
+                rss = [int(row["rss_kb"]) for row in csv.DictReader(f)]
+            print(f"process campaign on the {label}: wall {wall:.3f} s, {len(records) / wall:.4g} "
+                  f"samples/s ({len(records)} samples); per run wall_s {_spread(walls)}, RTF "
+                  f"{_spread(rtfs)}, start-up share (wall_s less the run loop) {_spread(startup)}; "
+                  f"peak RSS of the children together {max(rss) / 1024:.1f} MiB")
+        print(f"process campaign: the card's memory in use {mem_before:.0f} MiB before, "
+              f"{mem_peak:.0f} MiB at its peak with {CAMPAIGN_WORKERS} children: "
+              f"{(mem_peak - mem_before) / CAMPAIGN_WORKERS:.0f} MiB a child; samples/s "
+              f"{CAMPAIGN_SAMPLES / card_wall:.4g} against phase 18's batched campaign "
+              f"{batched_rollouts_per_s:.4g} rollouts/s ("
+              f"{batched_rollouts_per_s / (CAMPAIGN_SAMPLES / card_wall):.4g}x)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _trace_and_profile(label, campaign, trace_ticks=TRACE_TICKS):
@@ -1468,8 +1841,8 @@ def main() -> int:
     _clock("phases 7-12")
     _falcon9(el)
     _clock("phase 13")
-    _examples(el)
-    _single_entity(el)
+    landing_rollouts_per_s = _examples(el)
+    single_rtfs = _single_entity(el)
     _threefry(el)
     _clock("phase 24")
     _baselined_examples_phase(el)
@@ -1478,12 +1851,20 @@ def main() -> int:
     _clock("phase 26")
     _checkpoints(el)
     _clock("phase 27")
+    _cli_phase(single_rtfs)
+    _clock("phase 28")
+    _lockstep_phase()
+    _clock("phase 29")
+    _pump_phase(el)
+    _clock("phase 30")
+    _process_campaign_phase(landing_rollouts_per_s)
+    _clock("phase 31")
 
     if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
            for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
 
-    # 28. results
+    # 32. results
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

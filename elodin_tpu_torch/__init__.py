@@ -1,11 +1,18 @@
 """elodin_tpu_torch: the PyTorch and CUDA port of ``elodin_tpu``.
 
 The same ``World`` / ``Body`` / ``@system`` / ``Query`` / ``GraphQuery`` /
-``every`` / ``six_dof`` / ``Exec`` / ``monte_carlo.BatchedCampaign``
-surface, with component columns held as torch tensors on one device.  The batched 6-dof RK4 rollout
-(``ops.sixdof_kernel``) and all-pairs gravity (``ops.pairwise``) have
-hand-written CUDA kernels.  The package imports torch and numpy, never
-JAX.
+``every`` / ``six_dof`` / ``Exec`` / ``StepContext`` /
+``monte_carlo.BatchedCampaign`` surface, with component columns held as
+torch tensors on one device.  ``World.run`` makes every sim a CLI
+(``cli.py``: ``run``, ``bench``, ``components``, ``params``, ``plan``);
+``python -m elodin_tpu_torch`` runs a sim file or module, or a
+process-per-sample Monte Carlo campaign (``monte_carlo.run_campaign``;
+``monte_carlo.calibrate`` narrows its ranges).  ``lockstep.UdpLockstep``
+closes the loop with an external flight-software process over UDP;
+``tick_metrics`` times the run loop's phases.  The batched 6-dof RK4
+rollout (``ops.sixdof_kernel``) and all-pairs gravity (``ops.pairwise``)
+have hand-written CUDA kernels.  The package imports torch and numpy,
+never JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from .spatial import (  # noqa: F401
     SpatialMotion,
     SpatialTransform,
 )
+from .step_context import StepContext  # noqa: F401
 from .system import (  # noqa: F401
     FnSystem,
     GraphQuery,
@@ -159,6 +167,49 @@ class World(WorldBuilder):
             sim_time_step=1.0 / simulation_rate,
             max_ticks=max_ticks,
             telemetry_rate=telemetry_rate,
+            device=device,
+        )
+
+    def run(
+        self,
+        system,
+        simulation_rate: float = 120.0,
+        generate_real_time: bool = False,
+        telemetry_rate: float | None = None,
+        default_playback_speed: float = 1.0,
+        max_ticks: int | None = None,
+        optimize: bool = False,
+        is_canceled=None,
+        pre_step=None,
+        post_step=None,
+        db_path: str | None = None,
+        interactive: bool = True,
+        start_timestamp: int | None = None,
+        log_level: str | None = None,
+        backend: str = "tpu",
+        device: str | torch.device = "cuda",
+    ):
+        """The sim as a CLI (``cli.run_cli``): ``sys.argv`` picks ``run``,
+        ``bench``, ``components``, ``params`` or ``plan``.  The parameters
+        before ``device`` are the JAX package's, in its order;
+        ``default_playback_speed``, ``optimize``, ``interactive``,
+        ``start_timestamp`` and ``log_level`` are accepted and ignored, as
+        there.  ``device`` is where ``run`` and ``bench`` step unless the
+        command line names one (``--device``)."""
+        from .cli import run_cli
+
+        return run_cli(
+            self,
+            system,
+            simulation_rate=simulation_rate,
+            generate_real_time=generate_real_time,
+            telemetry_rate=telemetry_rate,
+            max_ticks=max_ticks,
+            is_canceled=is_canceled,
+            pre_step=pre_step,
+            post_step=post_step,
+            db_path=db_path,
+            backend=backend,
             device=device,
         )
 

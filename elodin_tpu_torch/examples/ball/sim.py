@@ -100,3 +100,7 @@ def build_world() -> el.World:
 
 def build_system() -> el.System:
     return system()
+
+
+if __name__ == "__main__":
+    world().run(system(), simulation_rate=1.0 / SIM_TIME_STEP, max_ticks=1200)

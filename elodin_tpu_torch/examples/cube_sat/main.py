@@ -397,3 +397,12 @@ def build_system() -> el.System:
         | earth_point,
         integrator=el.Integrator.SemiImplicit,
     )
+
+
+if __name__ == "__main__":
+    w = build_world()
+    w.run(
+        build_system(),
+        simulation_rate=1.0 / SIM_TIME_STEP,
+        max_ticks=60 * 20 * 60,
+    )

@@ -113,3 +113,12 @@ def build_system(noise: bool = True, flight_plan: bool = False) -> el.System:
     if flight_plan:
         stack = make_flight_plan() | stack
     return stack
+
+
+if __name__ == "__main__":
+    w = build_world()
+    w.run(
+        build_system(flight_plan=True),
+        simulation_rate=SIMULATION_RATE,
+        max_ticks=int(SIM_SECONDS * SIMULATION_RATE),
+    )

@@ -1015,3 +1015,8 @@ def build(params=None, sensors: bool = True) -> tuple[el.World, el.System]:
         sys = sys | sensor_suite
     sys = sys | contact
     return w, sys
+
+
+if __name__ == "__main__":
+    w, sys_ = build()
+    w.run(sys_, simulation_rate=SIM_RATE_HZ)

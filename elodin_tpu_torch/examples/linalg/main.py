@@ -96,3 +96,8 @@ def build_world() -> el.World:
 
 def build_system() -> el.System:
     return rotate_matrix | decompose
+
+
+if __name__ == "__main__":
+    w = build_world()
+    w.run(build_system(), simulation_rate=1.0 / SIM_TIME_STEP, max_ticks=1200)

@@ -391,3 +391,8 @@ def build_system() -> el.System:
         | fin_control
     )
     return control | el.six_dof(sys=effectors, integrator=el.Integrator.Rk4)
+
+
+if __name__ == "__main__":
+    w = build_world()
+    w.run(build_system(), simulation_rate=1.0 / SIM_TIME_STEP, max_ticks=120 * 40)

@@ -156,3 +156,7 @@ def build_world() -> el.World:
 
 def build_system() -> el.System:
     return system()
+
+
+if __name__ == "__main__":
+    world().run(system(), simulation_rate=SIMULATION_RATE, max_ticks=100)

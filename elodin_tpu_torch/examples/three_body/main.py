@@ -75,3 +75,11 @@ def build_world() -> el.World:
 
 def build_system() -> el.System:
     return el.six_dof(sys=gravity)
+
+
+if __name__ == "__main__":
+    build_world().run(
+        build_system(),
+        simulation_rate=1.0 / SIM_TIME_STEP,
+        generate_real_time=True,
+    )

@@ -4,21 +4,27 @@
 The JAX package compiles ``n`` telemetry batches of ``stride`` ticks into
 one program.  Here the same ``build_step`` runs eagerly, tick by tick, in a
 Python loop; the tick count stays a runtime value.  At each telemetry
-boundary the state is copied to the host and appended to ``History``
-synchronously.  The history is the checkpoint: ``state_at`` reads a
-recorded row, ``restore`` rewinds the device state to it and cuts the
-history after it; ``save_checkpoint`` / ``load_checkpoint`` write and read
-the live state as an npz file.  Not ported yet: the telemetry pump,
-lockstep sessions and ``restore_from_db`` (it needs the telemetry
-database).
+boundary the step loop hands the committed device tensors to the telemetry
+pump, a writer thread that copies them to the host and appends them to
+``History``; every read of the history flushes the pump first.
+``lockstep_session`` is the fast path of an external lockstep bridge
+(``lockstep.UdpLockstep``): command columns bound from host buffers, one
+host copy of the sent values per exchange.  The history is the checkpoint:
+``state_at`` reads a recorded row, ``restore`` rewinds the device state to
+it and cuts the history after it; ``save_checkpoint`` / ``load_checkpoint``
+write and read the live state as an npz file.  Not ported yet:
+``restore_from_db`` (it needs the telemetry database).
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import queue as _queue
 import tempfile
+import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -80,6 +86,11 @@ class History:
         self.times.append(t)
         for name, value in cols.items():
             self._append_chunk(name, np.asarray(value)[None])
+
+    def append_batch(self, ts: np.ndarray, stacked: dict[str, np.ndarray]) -> None:
+        self.times.extend(ts.tolist())
+        for name, value in stacked.items():
+            self._append_chunk(name, np.asarray(value))
 
     def _append_chunk(self, name: str, value: np.ndarray) -> None:
         self.chunks[name].append(value)
@@ -158,11 +169,169 @@ def _call_canceled(is_canceled) -> bool:
         return bool(is_canceled)
 
 
+# seconds an idle writer thread waits before it checks whether its pump is
+# still alive
+_PUMP_IDLE_S = 1.0
+
+
+class _TelemetryPump:
+    """Bounded-queue writer thread between the step loop and the history.
+
+    The step loop only enqueues the committed device tensors; the
+    device-to-host copy and the history append run here, off the loop.
+    Backpressure: the queue holds ``ELODIN_COMMIT_QUEUE`` batches (default
+    64); when it is full the producer blocks, so nothing is lost, and the
+    stall is counted.  An error on the writer thread is raised again at
+    the next ``submit`` or ``flush``.
+
+    The thread holds the queue and a weak reference to the pump, never the
+    pump itself: once its ``Exec`` is gone the history is freed and the
+    thread ends."""
+
+    def __init__(self, history: History, meta: WorldMeta, profiler: Profiler):
+        depth = int(os.environ.get("ELODIN_COMMIT_QUEUE", "64"))
+        self.q: _queue.Queue = _queue.Queue(maxsize=depth)
+        self.history = history
+        self.meta = meta
+        self.profiler = profiler
+        # optional Log2Histogram: the run loop's tick metrics "commit" phase
+        # (recorded here because the commit runs off the step loop)
+        self.commit_hist = None
+        self.stalls = 0
+        self.error: BaseException | None = None
+        self._thread = threading.Thread(
+            target=_pump_loop, args=(self.q, weakref.ref(self)), daemon=True,
+            name="elodin-telemetry")
+        self._thread.start()
+
+    def submit(self, ts: np.ndarray, stacked: dict) -> None:
+        try:
+            self.q.put_nowait((ts, stacked))
+        except _queue.Full:
+            self.stalls += 1
+            self.q.put((ts, stacked))
+        self._raise_error()
+
+    def flush(self) -> None:
+        self.q.join()
+        self._raise_error()
+
+    def _raise_error(self) -> None:
+        if self.error is not None:
+            err, self.error = self.error, None
+            raise err
+
+    def _commit(self, ts: np.ndarray, stacked: dict) -> None:
+        try:
+            t0 = time.perf_counter()
+            self.history.append_batch(ts, columns_to_numpy(stacked, self.meta))
+            dt = time.perf_counter() - t0
+            self.profiler.copy_s += dt
+            if self.commit_hist is not None:
+                self.commit_hist.observe_us(dt * 1e6)
+        except Exception as e:  # noqa: BLE001  (raised again on the step loop)
+            self.error = e
+
+
+def _pump_loop(q: _queue.Queue, pump_ref) -> None:
+    """The writer thread: commits each queued batch while its pump lives,
+    and ends once the pump is gone and the queue has stayed empty for
+    ``_PUMP_IDLE_S``."""
+    while True:
+        try:
+            item = q.get(timeout=_PUMP_IDLE_S)
+        except _queue.Empty:
+            if pump_ref() is None:
+                return
+            continue
+        pump = pump_ref()
+        try:
+            if pump is not None:
+                pump._commit(*item)
+        finally:
+            pump = item = None
+            q.task_done()
+
+
+def _to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A copy of a host column on ``device`` (unsigned values as int64,
+    the dtype they have there)."""
+    if buf.dtype.kind == "u":
+        buf = buf.astype(np.int64)
+    return torch.tensor(buf, device=device)
+
+
+class _LockstepSession:
+    """The step of an external lockstep bridge (SITL co-simulation).
+
+    The caller owns the command buffers (``cmd_bufs``: numpy, one whole
+    column of each received component, written in place between
+    exchanges).  One exchange binds each command column with one
+    host-to-device copy, steps ``hold_ticks`` ticks eagerly, gathers the
+    sent values of every tick into one flat f64 tensor (stacked
+    ``(hold_ticks, len)`` when ``hold_ticks > 1``) and brings it to the host
+    in one copy.  ``hold_ticks > 1`` is the batched mode: the commands are
+    held over the window, so the external controller runs at
+    sim_rate / hold_ticks.
+
+    ``emit`` is ``Exec.record_history`` when the session is built; with it
+    every tick of an exchange goes to the telemetry pump.  A bridge that
+    sees ``emit`` differ from the exec's setting builds a new session.
+    ``Exec.write_component`` rebinds its column at once, so no host write
+    is pending when an exchange starts."""
+
+    def __init__(self, exec_: "Exec", send: list[str], recv: list[str],
+                 hold_ticks: int = 1):
+        if hold_ticks < 1:
+            raise ValueError(f"hold_ticks must be >= 1, got {hold_ticks}")
+        self.exec = exec_
+        self.hold_ticks = hold_ticks
+        self.send_specs = [exec_._history.resolve(q) for q in send]
+        self.recv_comps = tuple(sorted({exec_._history.resolve(q)[0] for q in recv}))
+        self.cmd_bufs: dict[str, np.ndarray] = {
+            c: exec_.column_array(c).copy() for c in self.recv_comps}
+        self.emit = exec_.record_history
+
+    def _gather(self, cols: dict) -> torch.Tensor:
+        return torch.cat([cols[c][row].reshape(-1).to(torch.float64)
+                          for c, row in self.send_specs])
+
+    def peek(self) -> np.ndarray:
+        """Current (pre-step) values of the send components, packed."""
+        return self._gather(self.exec.cols).cpu().numpy()
+
+    def tick(self) -> np.ndarray:
+        """Advance with the current command buffers; returns the packed
+        post-step send vector: (len,) at hold_ticks=1, (hold_ticks, len) in
+        batched mode (one row per tick of the window)."""
+        ex = self.exec
+        dt = ex.sim_time_step
+        cols = dict(ex.cols)
+        for c in self.recv_comps:
+            cols[c] = _to_device(self.cmd_bufs[c], ex.device)
+        base = (ex._tick + 1) * dt
+        outs = []
+        for i in range(self.hold_ticks):
+            cols = ex._step(cols)
+            outs.append(self._gather(cols))
+            if self.emit:
+                ex._commit(base + i * dt, cols)
+        ex.cols = cols
+        ex._tick += self.hold_ticks
+        ex.profiler.ticks += self.hold_ticks
+        out = outs[0] if self.hold_ticks == 1 else torch.stack(outs)
+        return out.cpu().numpy()
+
+
 class Exec:
     """World executor on one device.
 
     ``cols`` are numpy columns (``WorldBuilder.snapshot()``); they are
     checked against ``meta`` and moved to ``device`` once."""
+
+    # True copies each commit to the history on the step loop, without the
+    # pump: the reference that the pump's history is held to in the tests
+    _sync_history = False
 
     def __init__(
         self,
@@ -199,6 +368,7 @@ class Exec:
         self._tick = 0
         if self.record_history:
             self._history.append_state(0.0, columns_to_numpy(self.cols, meta))
+        self._pump: _TelemetryPump | None = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -227,8 +397,8 @@ class Exec:
                 return
 
     def _run_batch(self, n: int, stride: int) -> None:
-        """``n`` telemetry batches of ``stride`` ticks, each followed by a
-        synchronous host copy into the history when recording."""
+        """``n`` telemetry batches of ``stride`` ticks, each committed to
+        the history when recording."""
         cols = self.cols
         for _ in range(n):
             t0 = time.perf_counter()
@@ -240,11 +410,41 @@ class Exec:
             self._tick += stride
             self.profiler.ticks += stride
             if self.record_history:
-                t0 = time.perf_counter()
-                self._history.append_state(
-                    self._tick * self.sim_time_step,
-                    columns_to_numpy(cols, self.meta))
-                self.profiler.copy_s += time.perf_counter() - t0
+                self._commit(self._tick * self.sim_time_step, cols)
+
+    def _commit(self, t: float, cols: dict) -> None:
+        """Record the state ``cols`` at sim time ``t``: its device tensors
+        go to the telemetry pump, which copies them to the host off the
+        step loop.  The step never writes a column in place, so the
+        tensors hold this state until the copy is made."""
+        if self._sync_history:
+            t0 = time.perf_counter()
+            self._history.append_state(t, columns_to_numpy(cols, self.meta))
+            self.profiler.copy_s += time.perf_counter() - t0
+            return
+        self._ensure_pump().submit(np.asarray([t]), {k: v.unsqueeze(0) for k, v in cols.items()})
+
+    def _ensure_pump(self) -> _TelemetryPump:
+        if self._pump is None:
+            self._pump = _TelemetryPump(self._history, self.meta, self.profiler)
+            self._pump.commit_hist = getattr(self, "commit_hist", None)
+        return self._pump
+
+    def flush_telemetry(self) -> None:
+        """Block until every submitted telemetry batch has been copied to
+        the host and recorded in the history; raises a writer's error."""
+        if self._pump is not None:
+            self._pump.flush()
+
+    def lockstep_session(self, send: list[str], recv: list[str],
+                         hold_ticks: int = 1) -> _LockstepSession:
+        """The fast path of an external lockstep bridge: ``send`` and
+        ``recv`` are 'entity.component' names; each exchange binds the
+        received command columns from the session's ``cmd_bufs``, steps
+        ``hold_ticks`` ticks and returns the sent values (see
+        ``_LockstepSession``).  ``record_history`` is read once, when the
+        session is built (``session.emit``)."""
+        return _LockstepSession(self, send, recv, hold_ticks)
 
     # -- host-side control -------------------------------------------------
 
@@ -275,6 +475,7 @@ class Exec:
         the initial state), as numpy."""
         if not self.record_history:
             raise RuntimeError("history recording is disabled")
+        self.flush_telemetry()
         out = {}
         for name in self.meta.components:
             series = self._history.series(name)
@@ -321,6 +522,7 @@ class Exec:
     def history_frame(self, components) -> DataFrame:
         if isinstance(components, str):
             components = [components]
+        self.flush_telemetry()
         times = np.asarray(self._history.times, dtype=np.float64)
         start = np.datetime64(
             self._history.start_timestamp.replace(tzinfo=None), "us"

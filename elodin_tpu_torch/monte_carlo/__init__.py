@@ -4,8 +4,9 @@
 ``Param`` / ``params_spec`` / ``params`` / ``result`` / ``port`` and LHS plan
 sampling are host-only copies of the JAX package's; ``batched`` runs a
 whole campaign on one torch device, the sample axis under
-``torch.func.vmap``.  Not ported yet: the process-per-sample ``campaign``
-runner and ``calibrate``.
+``torch.func.vmap``; ``campaign`` runs one process per sample, for a sim
+that must talk to an external co-process; ``calibrate`` narrows a
+campaign's ranges around its best runs.
 """
 
 from __future__ import annotations
@@ -173,6 +174,8 @@ def result(**kwargs) -> None:
 
 
 from .batched import BatchedCampaign, BatchedResult, run_batched, write_artifacts  # noqa: E402,F401
+from .campaign import run_campaign  # noqa: E402,F401
+from .calibrate import Calibrator, narrow_variables, rank_runs  # noqa: E402,F401
 
 __all__ = [
     "Param",
@@ -191,4 +194,8 @@ __all__ = [
     "BatchedResult",
     "run_batched",
     "write_artifacts",
+    "run_campaign",
+    "Calibrator",
+    "rank_runs",
+    "narrow_variables",
 ]

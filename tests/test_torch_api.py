@@ -52,6 +52,7 @@ def test_build_takes_the_jax_parameters_in_their_order():
     ex = ttb.build_world().build(ttb.build_system(), 120.0, False, 60.0, device="cpu")
     assert ex.ticks_per_telemetry == 2 and ex.max_ticks is None
     ex.run(4)
+    ex.flush_telemetry()
     assert ex.tick() == 4 and len(ex._history.times) == 3
     ex = ttb.build_world().build(ttb.build_system(), 120.0, True, None, 2.0, 3, True,
                                  None, "tpu", "cpu")

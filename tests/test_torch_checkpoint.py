@@ -57,6 +57,7 @@ def test_restore_follows_the_recorded_time_with_a_telemetry_stride():
     exec_ = _ball(telemetry_rate=40.0)  # a row every 3 ticks
     exec_.run(30)
     first = _cols(exec_)
+    exec_.flush_telemetry()
     assert len(exec_._history.times) == 11
     exec_.restore(4)  # row 4 is tick 12
     assert exec_.tick() == 12 and len(exec_._history.times) == 5
@@ -114,11 +115,13 @@ def test_restore_through_a_spilled_history(tmp_path):
     exec_._history.append_state(0.0, columns_to_numpy(exec_.cols, exec_.meta))
     exec_.run(40)
     first = _cols(exec_)
+    exec_.flush_telemetry()
     assert len(exec_._history._spills["world_pos"]) >= 2
     exec_.restore(17)
     assert len(exec_._history.series("world_pos")) == 18
     exec_.run(23)
     assert _equal(first, exec_.cols)
+    exec_.flush_telemetry()
     assert len(exec_._history.series("world_pos")) == 41
 
 

@@ -1,0 +1,238 @@
+"""The port's sim CLI (``cli.run_cli``, ``World.run``, ``python -m
+elodin_tpu_torch``) against the JAX package's, on the CPU.
+
+* ``components`` of the rocket, the drone and the cube-sat, and
+  ``params`` and ``plan`` of the landing sim: byte for byte (``plan.csv``
+  too), ``sys.argv`` patched; the JAX ``run_cli`` returns before its
+  server for these.
+* ``bench --ticks 20 --device cpu``: the JAX package's three lines (the
+  numbers aside); ``--profile`` writes ``profile-metrics.json`` and
+  ``step.torch_profile.txt`` into ``profile_output/`` beside
+  ``sys.argv[0]``.
+* ``World.run(max_ticks=120, pre_step=, post_step=, device="cpu")`` on the
+  rocket: every column within 1e-10 of the JAX package's
+  ``World.build(...).run(120)`` (the rocket's tolerance,
+  ``tests/test_torch_examples.py``), the callbacks in the JAX ``run_cli``
+  order, ``ELODIN_SIM_SUMMARY_JSON`` written; a database path or
+  ``ELODIN_RESUME=1`` raises ``NotImplementedError``.
+* One subprocess, ``python -m elodin_tpu_torch bench
+  elodin_tpu_torch.examples.ball.sim --ticks 20 --device cpu``.
+"""
+
+import csv
+import inspect
+import json
+import os
+import re
+import runpy
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import elodin_tpu as jel
+import elodin_tpu_torch as tel
+from elodin_tpu_torch import __main__ as tmain
+from elodin_tpu_torch.examples.cube_sat import main as tcube
+from elodin_tpu_torch.examples.drone import main as tdrone
+from elodin_tpu_torch.examples.monte_carlo import main as tlanding
+from elodin_tpu_torch.examples.rocket import main as trocket
+from elodin_tpu_torch.examples.three_body import main as ttb
+from torch_port_util import float_policy, jax_example, rel_errs
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_LANDING_DIR = os.path.join(REPO, "examples", "monte-carlo")
+ROCKET_TICKS, ROCKET_TOL = 120, 1e-10
+BENCH_LINES = re.compile(r"= tick time: +N ms \(batch of 1 ticks\)\n"
+                         r"build time: +N ms\nreal_time_factor: +N\n")
+
+
+@pytest.fixture(autouse=True)
+def _f64():
+    with float_policy("f64"):
+        yield
+
+
+def _argv(monkeypatch, *args, prog="main.py"):
+    monkeypatch.setattr(sys, "argv", [str(prog), *args])
+
+
+# the (JAX module, port module, how main() calls World.run) of each example
+EXAMPLES = {
+    "rocket": (lambda: jax_example("rocket", "main"), trocket,
+               lambda m: (m.build_system(), 1.0 / m.SIM_TIME_STEP)),
+    "drone": (lambda: jax_example("drone", "main"), tdrone,
+              lambda m: (m.build_system(flight_plan=True), m.SIMULATION_RATE)),
+    "cube-sat": (lambda: jax_example("cube-sat", "main"), tcube,
+                 lambda m: (m.build_system(), 1.0 / m.SIM_TIME_STEP)),
+}
+
+
+@pytest.mark.parametrize("example", sorted(EXAMPLES))
+def test_components_byte_for_byte(example, monkeypatch, capsys):
+    jmod, tmod, call = EXAMPLES[example]
+    jmod = jmod()
+    _argv(monkeypatch, "components")
+    outs = []
+    for mod in (jmod, tmod):
+        system, rate = call(mod)
+        assert mod.build_world().run(system, simulation_rate=rate) is None
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1]
+    names = {c["name"] for c in json.loads(outs[1])}
+    assert {"world_pos", "tick"} <= names
+
+
+def _jax_landing_main(monkeypatch):
+    """Run ``examples/monte-carlo/main.py`` as the JAX package's sim, its
+    own ``sim`` module on the path."""
+    monkeypatch.syspath_prepend(JAX_LANDING_DIR)
+    monkeypatch.delitem(sys.modules, "sim", raising=False)
+    try:
+        runpy.run_path(os.path.join(JAX_LANDING_DIR, "main.py"), run_name="__main__")
+    finally:
+        sys.modules.pop("sim", None)
+
+
+def test_params_and_plan_byte_for_byte(tmp_path, monkeypatch, capsys):
+    _argv(monkeypatch, "params")
+    _jax_landing_main(monkeypatch)
+    ref = capsys.readouterr().out
+    tlanding.main()
+    ours = capsys.readouterr().out
+    assert ours == ref
+    assert sorted(json.loads(ours)["params"]) == sorted(tlanding.PARAMS)
+
+    _argv(monkeypatch, "plan", str(tmp_path / "jax"))
+    _jax_landing_main(monkeypatch)
+    _argv(monkeypatch, "plan", str(tmp_path / "port"))
+    tlanding.main()
+    ref, ours = ((tmp_path / d / "plan.csv").read_bytes() for d in ("jax", "port"))
+    assert ours == ref
+    row, = csv.DictReader(ours.decode().splitlines())
+    assert float(row["param.dry_mass"]) == 25_000.0
+
+
+def test_components_of_a_file_target_through_python_m(monkeypatch, capsys):
+    _argv(monkeypatch, "components")
+    _jax_landing_main(monkeypatch)
+    ref = capsys.readouterr().out
+    tmain.main(["components", tlanding.__file__])
+    assert capsys.readouterr().out == ref
+
+
+def _numbers_out(text):
+    return re.sub(r"-?\d+\.\d+", "N", text)
+
+
+def test_bench_prints_the_jax_lines(tmp_path, monkeypatch, capsys):
+    _argv(monkeypatch, "bench", "--ticks", "20")
+    jt = jax_example("three-body", "main")
+    jt.w.run(jt.sys, simulation_rate=120.0)
+    ref = capsys.readouterr().out
+    _argv(monkeypatch, "bench", "--ticks", "20", "--device", "cpu",
+          prog=tmp_path / "main.py")
+    exec_ = ttb.build_world().run(ttb.build_system(), simulation_rate=120.0)
+    ours = capsys.readouterr().out
+    assert BENCH_LINES.fullmatch(_numbers_out(ref)), ref
+    assert BENCH_LINES.fullmatch(_numbers_out(ours)), ours
+    assert exec_.tick() == 20 and exec_.cols["world_pos"].device.type == "cpu"
+    assert not (tmp_path / "profile_output").exists()
+
+
+def test_bench_profile_writes_its_files(tmp_path, monkeypatch, capsys):
+    _argv(monkeypatch, "bench", "--ticks", "5", "--profile", "--device", "cpu",
+          prog=tmp_path / "main.py")
+    exec_ = ttb.build_world().run(ttb.build_system(), simulation_rate=120.0)
+    capsys.readouterr()
+    out = tmp_path / "profile_output"
+    metrics = json.loads((out / "profile-metrics.json").read_text())
+    assert sorted(metrics) == ["build_time_ms", "real_time_factor", "ticks"]
+    assert metrics["ticks"] == 5
+    table = (out / "step.torch_profile.txt").read_text()
+    assert "aten::" in table
+    assert exec_.tick() == 5  # the profiled tick is not committed
+
+
+def test_world_run_takes_the_jax_parameters_in_their_order():
+    ours = list(inspect.signature(tel.World.run).parameters)
+    ref = list(inspect.signature(jel.World.run).parameters)
+    assert ours == ref + ["device"]
+
+
+def test_world_run_on_the_rocket_matches_the_jax_package(tmp_path, monkeypatch, capsys):
+    jr = jax_example("rocket", "main")
+    ref = jr.build_world().build(jr.build_system(), simulation_rate=1.0 / jr.SIM_TIME_STEP)
+    ref.run(ROCKET_TICKS)
+
+    summary = tmp_path / "summary.json"
+    monkeypatch.setenv("ELODIN_SIM_SUMMARY_JSON", str(summary))
+    _argv(monkeypatch, "run")
+    calls = []
+    ours = trocket.build_world().run(
+        trocket.build_system(), simulation_rate=1.0 / trocket.SIM_TIME_STEP,
+        max_ticks=ROCKET_TICKS, pre_step=lambda tick, ctx: calls.append(("pre", tick, ctx.tick())),
+        post_step=lambda tick, ctx: calls.append(("post", tick, ctx.tick())), device="cpu")
+    captured = capsys.readouterr()
+    assert "not ported" in captured.err and f"{ROCKET_TICKS} ticks" in captured.out
+    assert ours.tick() == ROCKET_TICKS and ours.cols["world_pos"].device.type == "cpu"
+    want = []
+    for t in range(ROCKET_TICKS):
+        want += [("pre", t, t), ("post", t, t + 1)]
+    assert calls == want
+    for k in ref.meta.components:
+        r, o = np.asarray(ref.column_array(k)), ours.column_array(k)
+        if r.dtype.kind != "f":
+            np.testing.assert_array_equal(o, r, err_msg=k)
+        else:
+            assert max(rel_errs(o, r).values()) <= ROCKET_TOL, k
+    assert len(ours.history_frame("rocket.world_pos")) == ROCKET_TICKS + 1
+    data = json.loads(summary.read_text())
+    assert data["ticks"] == ROCKET_TICKS and data["max_ticks"] == ROCKET_TICKS
+    assert data["paced_ticks"] == 0 and data["behind_deadline_frac"] == 0.0
+    assert data["real_time_factor_run"] > 0.0 and "commit" in data["phases"]
+
+
+def test_run_limits_and_refusals(monkeypatch, capsys):
+    world, system = ttb.build_world, ttb.build_system
+    _argv(monkeypatch, "run", "--device", "cpu")
+    monkeypatch.setenv("ELODIN_MAX_TICKS", "7")
+    assert world().run(system()).tick() == 7
+    assert world().run(system(), max_ticks=3).tick() == 3
+    with pytest.raises(NotImplementedError, match="database"):
+        world().run(system(), db_path="out/db")
+    monkeypatch.setenv("ELODIN_DB_PATH", "out/db")
+    with pytest.raises(NotImplementedError, match="database"):
+        world().run(system())
+    monkeypatch.delenv("ELODIN_DB_PATH")
+    monkeypatch.setenv("ELODIN_RESUME", "1")
+    with pytest.raises(NotImplementedError, match="database"):
+        world().run(system())
+    monkeypatch.setenv("ELODIN_SKIP_RUN", "1")
+    assert world().run(system()) is None
+    monkeypatch.delenv("ELODIN_SKIP_RUN")
+    monkeypatch.delenv("ELODIN_RESUME")
+    calls = []
+    ex = world().run(system(), device="cpu",
+                     is_canceled=lambda: calls.append(1) or len(calls) > 4)
+    assert ex.tick() == 4
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("cmd", ["db", "editor", "render-server"])
+def test_python_m_refuses_what_needs_the_database(cmd, capsys):
+    with pytest.raises(SystemExit) as e:
+        tmain.main([cmd])
+    assert e.value.code != 0
+    assert "telemetry database, not ported" in capsys.readouterr().err
+
+
+def test_python_m_bench_of_a_module_in_a_subprocess():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "elodin_tpu_torch", "bench", "elodin_tpu_torch.examples.ball.sim",
+         "--ticks", "20", "--device", "cpu"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert BENCH_LINES.fullmatch(_numbers_out(proc.stdout)), proc.stdout

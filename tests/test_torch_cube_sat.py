@@ -262,6 +262,8 @@ def runs():
         tex = tc.build_world().build(tc.build_system(), simulation_rate=1.0 / tc.SIM_TIME_STEP,
                                      device="cpu")
         tex.run(TICKS, show_progress=False)
+    jex.flush_telemetry()
+    tex.flush_telemetry()  # the tests read the private history directly
     return jex, tex
 
 

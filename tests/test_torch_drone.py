@@ -287,6 +287,8 @@ def runs():
             tex = td.build_world().build(td.build_system(noise=noise),
                                          simulation_rate=td.SIMULATION_RATE, device="cpu")
             tex.run(TICKS, show_progress=False)
+            jex.flush_telemetry()
+            tex.flush_telemetry()  # the tests read the private history directly
             out[noise] = (jex, tex)
     return out
 

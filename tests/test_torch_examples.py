@@ -195,6 +195,8 @@ def rocket_runs():
         ours = trk.build_world().build(trk.build_system(),
                                        simulation_rate=1.0 / trk.SIM_TIME_STEP, device="cpu")
         ours.run(ROCKET_LONG_TICKS)
+    ref.flush_telemetry()
+    ours.flush_telemetry()  # the tests read the private history directly
     return ref, ours
 
 

@@ -51,6 +51,8 @@ def runs():
     w, s = tsim.build(None)
     texec = w.build(s, simulation_rate=tsim.SIM_RATE_HZ, device="cpu")
     texec.run(LONG_TICKS)
+    jexec.flush_telemetry()
+    texec.flush_telemetry()  # the tests read the private history directly
     return jexec, texec
 
 

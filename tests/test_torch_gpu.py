@@ -419,3 +419,59 @@ def test_checkpoint_restore_on_the_card(cuda, tmp_path):
     exec_.run(5)
     exec_.load_checkpoint(tmp_path / "state.npz")
     assert all(torch.equal(first[k], exec_.cols[k]) for k in first)
+
+
+# ---------------------------------------------------------------------------
+# the sim's entry points: lockstep sessions, the telemetry pump, the CLI
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hold", [1, 4])
+def test_lockstep_session_on_the_card_matches_the_cpu(cuda, hold):
+    from elodin_tpu_torch.examples.betaflight_sitl import main as sitl
+
+    sessions = {dev: sitl.build(dev).lockstep_session(sitl.SEND, sitl.RECV, hold_ticks=hold)
+                for dev in ("cuda", "cpu")}
+    for cmd in np.random.default_rng(3).uniform(0.0, 20.0, 50):
+        outs = {}
+        for dev, session in sessions.items():
+            session.cmd_bufs["thrust_cmd"][0] = cmd
+            outs[dev] = session.tick()
+        np.testing.assert_allclose(outs["cuda"], outs["cpu"], rtol=0, atol=1e-12)
+    assert sessions["cuda"].exec.cols["z_pos"].device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_telemetry_pump_on_the_card_matches_the_synchronous_path(cuda, tmp_path):
+    from elodin_tpu_torch.examples.cube_sat import main as cube
+
+    hist = {}
+    for sync in (False, True):
+        exec_ = cube.build_world().build(cube.build_system(), simulation_rate=120.0,
+                                         device="cuda")
+        exec_._sync_history = sync
+        exec_._history.max_bytes = 16 << 10
+        exec_._history._spool_dir = str(tmp_path / f"spool{sync}")
+        exec_.run(40)
+        exec_.flush_telemetry()
+        h = exec_._history
+        hist[sync] = (list(h.times), {k: h.series(k) for k in exec_.meta.components})
+    assert hist[False][0] == hist[True][0]
+    for k, ref in hist[True][1].items():
+        np.testing.assert_array_equal(hist[False][1][k], ref, err_msg=k)
+
+
+@pytest.mark.gpu
+def test_cli_bench_on_the_card_in_a_subprocess(cuda):
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "elodin_tpu_torch.examples.stablehlo.sim", "bench", "--ticks",
+         "50", "--device", "cuda"], cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "real_time_factor:" in proc.stdout

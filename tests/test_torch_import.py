@@ -51,6 +51,16 @@ PORT_MODULES = [
     "elodin_tpu_torch.examples.linalg.main",
     "elodin_tpu_torch.examples.stablehlo.sim",
     "elodin_tpu_torch.examples.falcon9.sensors",
+    "elodin_tpu_torch.step_context",
+    "elodin_tpu_torch.tick_metrics",
+    "elodin_tpu_torch.lockstep",
+    "elodin_tpu_torch.cli",
+    "elodin_tpu_torch.__main__",
+    "elodin_tpu_torch.monte_carlo.campaign",
+    "elodin_tpu_torch.monte_carlo.calibrate",
+    "elodin_tpu_torch.examples.monte_carlo.main",
+    "elodin_tpu_torch.examples.betaflight_sitl.main",
+    "elodin_tpu_torch.examples.betaflight_sitl.controller",
 ]
 
 
