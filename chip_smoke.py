@@ -200,12 +200,14 @@ kernels' launch counts are set to 0 before each of phases 28-31 and must
 read 0 after it, in this process; the children of phases 28 and 31 run
 the same code).  Every child is started with ``subprocess`` from this
 process (never a fork of it), and a nonzero exit fails the script; each
-timed figure is taken 3 times (median and spread):
+timed figure of phases 29-30 is taken 2 times (median and spread; 3
+until phases 32-34 took their time):
 
 28. the CLI on the card: ``python -m elodin_tpu_torch.examples.drone.main
     bench --ticks 300`` and ``python -m
-    elodin_tpu_torch.examples.cube_sat.main bench --ticks 240``, 3 children
-    each: the printed tick time and RTF beside phase 21's in-process RTF;
+    elodin_tpu_torch.examples.cube_sat.main bench --ticks 240``, 1 child
+    each (3 until phases 32-34 took their time): the printed tick time and
+    RTF beside phase 21's in-process RTF;
     each child's wall split into the interpreter's start, the torch and
     port import and the CUDA initialisation (one probe child) and the
     ticks (the printed tick time); ``components`` of the drone (run by the
@@ -218,24 +220,55 @@ timed figure is taken 3 times (median and spread):
     missed replies and the altitude held within 0.5 m (the gate); then the
     session on the card against the CPU for the same 50 commands at hold 1
     and 4, within 1e-12.
-30. the telemetry pump on the card: the cube-sat, 240 ticks in 3 windows
+30. the telemetry pump on the card: the cube-sat, 160 ticks in 2 windows
     of 80, without history, with history through the pump and through the
     synchronous path (``Exec._sync_history``), the windows interleaved:
     ms per tick of the step loop and of the pump's drain after it; the two
     histories bitwise equal (the gate); the pump's stall count; a device
     trace of 10 ticks with history: device ops per tick and idle share.
 31. the process campaign on the card: ``monte_carlo.run_campaign`` on
-    ``examples/monte_carlo/main.py``, 8 landing samples (LHS seed 0, the
-    five dispersions) at the full 2400 ticks, 4 workers,
-    ``device="cuda"``; then rows 0-3 of the same plan with ``device="cpu"``
-    (a resume that lists rows 4-7 as done).  Every run valid; each card
+    ``examples/monte_carlo/main.py``, 4 landing samples (LHS seed 0, the
+    five dispersions; 8 until phases 32-34 took their time) at the full
+    2400 ticks, 4 workers, ``device="cuda"``; then rows 0-3 of the same
+    plan with ``device="cpu"`` (a resume that lists the plan's later rows,
+    if any, as done).  Every run valid; each card
     sample's ``touchdown_vz`` and ``landing_offset`` within 1e-9 of the
     CPU's from the same row; the campaign's wall, each run's ``wall_s``,
     RTF and start-up share (``perf.csv``), the peak RSS
     (``resources.csv``) and the card's memory in use while it ran
     (nvidia-smi); samples/s beside phase 18's batched campaign.
 
-32. a JSON line of the kernels (time, plain version's time and bound at
+Differentiable rollouts, the rest of adcs and gravity/j2 (eager PyTorch
+ops and autograd; no hand kernel: both kernels' launch counts are set to
+0 before each of phases 32-34 and must read 0 after it), in f64; card
+against CPU at ``GRAD_TOL`` (1e-9, max |Δ| / max |ref|) unless named:
+
+32. orbit-retarget (``examples.orbit_retarget``, ``el.rollout`` through
+    its 504 RK4 ticks): the gradient at 60 ticks on the card against the
+    central finite difference (eps 1e-6, rtol 1e-5, atol 1e-8); 3 Adam
+    steps from ``solve``'s start (``torch.optim.Adam(lr=3e-2)``) on the
+    card and on the CPU, each step's loss, gradient and iterate held card
+    against CPU, ms per value-and-grad and step (median of the 3), the
+    peak card memory above what was allocated before them; one step with
+    8 remat segments on each, held against plain (value rtol 1e-12,
+    gradient 1e-9; bitwise printed), its ms and peak memory; the device
+    trace of one value-and-grad cut to 16 ticks (device ops a tick,
+    forward and backward, idle share).
+33. neural-hover (``examples.neural_hover``) at its full width and
+    horizon, 16 starts x 240 ticks under ``torch.func.vmap``: 2 Adam
+    steps from the threefry initialisation on the card and on the CPU,
+    losses, gradients and weights held card against CPU, ms per step,
+    the peak card memory; the device trace of one value-and-grad cut to
+    24 ticks; ``evaluate`` finite.
+34. cube-sat-pysim (``examples.cube_sat_pysim``, ``World.to_jax`` /
+    ``TorchSim``) on the card, 2 chunks of 30 ticks, against ``Exec`` on
+    the card: the angular speeds and every column ≤ 1e-12; the UKF (50
+    updates, 1e-10), ``MagKal`` (300 readings, 1e-8: its covariance
+    shrinks by 10 orders), ``magical_calibrate``, ``triad`` and ``J2``
+    (1e-12), card against CPU; ``sixdof_rollout`` and
+    ``pairwise_gravity`` refuse an input that requires grad on the card.
+
+35. a JSON line of the kernels (time, plain version's time and bound at
     the main path's width, launches on the main path; no PyTorch call
     computes either function, so ``library_ms`` is null), then the last
     line ``{"ok": true, "device": {...}}``.
@@ -243,6 +276,7 @@ timed figure is taken 3 times (median and spread):
 
 import cProfile
 import json
+import math
 import multiprocessing
 import os
 import pstats
@@ -261,6 +295,7 @@ SIXDOF_STATE = ("world_pos", "world_vel")
 MAIN_BODIES, MAIN_TICKS = 8192, 240
 BENCH_BODIES, BENCH_TICKS, PLAIN_TICKS = 131072, 4000, 20
 TRACE_TICKS = 20
+TRACE_ATTEMPTS = 3  # calls of fn a device trace makes at most
 NBODY_BODIES, NBODY_TICKS, NBODY_DT = 16384, 100, 60.0
 EDGE_BODIES, EDGE_TICKS, EDGE_TRACE_TICKS = 4096, 50, 5
 PROBED_BODIES, PROBED_TICKS = 128, 10
@@ -310,7 +345,7 @@ MC_SAMPLES, MC_TICKS, MC_CPU_SAMPLES, MC_FRAC_SLACK = 10000, 2400, 64, 5
 # 600 -> 150; phase 28 runs the drone and the cube-sat through the CLI at
 # 300 and 240 ticks)
 RTF_TICKS = {"drone": 60, "cube-sat": 60, "ball": 120, "stablehlo": 300, "linalg": 150}
-RTF_REPEATS = 3
+RTF_REPEATS = 2  # 3 until phases 32-34 took their time
 RTF_WARMUP_TICKS = 30
 SINGLE_TRACE_TICKS = 10
 THREEFRY_COUNTERS, THREEFRY_CORNER_COUNTERS = 10**6, 1000
@@ -328,7 +363,8 @@ CKPT_HISTORY_BYTES = 16 << 10
 # run_campaign(10000, 2400, seed=0), run on a CPU (JAX_PLATFORMS=cpu, f64)
 JAX_MC_LANDED_FRAC, JAX_MC_SOFT_FRAC = 0.9759, 0.9401
 REPO = os.path.dirname(os.path.abspath(__file__))
-REPEATS = 3  # of each timed figure of phases 28-31
+REPEATS = 2  # of each timed figure of phases 29-30 (3 until phases 32-34 took their time)
+CLI_REPEATS = 1  # bench children an example in phase 28 (cut from 3 for phases 32-34)
 # phase 28: each CLI child (module, bench ticks), the examples' own sizes
 CLI_BENCH = {"drone": ("elodin_tpu_torch.examples.drone.main", 300),
              "cube-sat": ("elodin_tpu_torch.examples.cube_sat.main", 240)}
@@ -347,11 +383,19 @@ STARTUP_PROBE = (
 # phase 29: the betaflight-sitl hover at its 1 kHz plant rate
 SITL_TICKS, SITL_STRICT_TICKS, SITL_TRIPS, SITL_HOLD = 4000, 1000, 40, 64
 SESSION_COMMANDS, SESSION_TOL = 50, 1e-12
-# phase 30: the cube-sat with history, 3 windows of 80 ticks a mode
+# phase 30: the cube-sat with history, REPEATS windows of 80 ticks a mode
 PUMP_WINDOW_TICKS, PUMP_WARMUP_TICKS = 80, 10
 # phase 31: the process campaign of the landing sim
-CAMPAIGN_SAMPLES, CAMPAIGN_CPU_SAMPLES, CAMPAIGN_WORKERS = 8, 4, 4
+CAMPAIGN_SAMPLES, CAMPAIGN_CPU_SAMPLES, CAMPAIGN_WORKERS = 4, 4, 4  # 8 card samples before phases 32-34
 CAMPAIGN_TIMEOUT_S = 900
+# phases 32-34: differentiable rollouts, the rest of adcs and gravity/j2
+ORBIT_V0 = (0.1, 1.0, 0.05)  # the start of phase 32's finite difference
+ORBIT_FD_TICKS, ORBIT_FD_EPS, ORBIT_ADAM_STEPS = 60, 1e-6, 3
+ORBIT_TRACE_TICKS = 16  # one gradient traced, cut in depth (~3500 device ops a tick)
+GRAD_TOL = 1e-9  # card against CPU, values, gradients and iterates
+HOVER_STEPS, HOVER_TRACE_TICKS = 2, 24
+PYSIM_CHUNK, PYSIM_CHUNKS = 30, 2
+MAGKAL_READINGS = 300
 
 
 _START = time.perf_counter()
@@ -380,21 +424,30 @@ def _time_ms(fn, reps=3, calls=1):
     return min(times), statistics.median(times)
 
 
-def _device_trace(fn):
+def _device_trace(fn, attempts=TRACE_ATTEMPTS):
     """(device ops, device busy ms, wall ms) of one call of fn() under
     torch.profiler.  Busy is the sum of the durations of the device ops
-    (kernels and copies), which run on one stream."""
+    (kernels and copies), which run on one stream.  The profiler at times
+    hands back a trace with no device op at all; fn() is then traced again,
+    up to ``attempts`` calls in all, and if none of them records a device
+    op the result is (0, nan, wall ms of the last): not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, wall_ms
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, wall_ms
+        print(f"device trace: the profiler recorded no device op (call {attempt} of "
+              f"{attempts})")
+    print("device trace: device time not measured (nan below)")
+    return 0, math.nan, wall_ms
 
 
 def _host_profile(label, fn, ticks, top=10):
@@ -825,8 +878,9 @@ def _nbody(el, interop):
                   f"min {k_min * 1e3:.4g} us median {k_med * 1e3:.4g} us, "
                   f"{n * n / (k_min * 1e-3):.4g} pairs/s; bound {bound * 1e3:.4g} us "
                   f"({resource}), {bound / k_min:.1%} of the bound; device time per "
-                  f"launch (profiler, {ops} device ops in 10 calls) {busy / ops * 1e3:.4g} us, "
-                  f"{bound / (busy / ops):.1%} of the bound")
+                  f"launch (profiler, {ops} device ops in 10 calls) "
+                  + (f"{busy / ops * 1e3:.4g} us, {bound / (busy / ops):.1%} of the bound"
+                     if ops else "not measured"))
     plain = {}
     for dtype in (torch.float32, torch.float64):
         pos, mass, g, eps = inputs(NBODY_BODIES, "nbody", dtype)
@@ -1544,7 +1598,7 @@ def _cli_phase(single_rtfs):
           f"{probe['components_s']:.3f} s")
     for example, (module, ticks) in CLI_BENCH.items():
         runs = []
-        for _ in range(REPEATS):
+        for _ in range(CLI_REPEATS):
             out, wall = _no_launches(f"{example} CLI bench child", lambda: _child(
                 ["-m", module, "bench", "--ticks", str(ticks)], f"{example} bench"))
             runs.append((wall,) + _bench_figures(out))
@@ -1553,7 +1607,7 @@ def _cli_phase(single_rtfs):
         med_wall, med_tick = statistics.median(walls), statistics.median(tick_ms)
         ticks_s = med_tick * ticks / 1e3
         rest = med_wall - interp_s - probe["import_s"] - probe["cuda_init_s"] - ticks_s
-        print(f"CLI {example} on the card (python -m {module} bench --ticks {ticks}, {REPEATS} "
+        print(f"CLI {example} on the card (python -m {module} bench --ticks {ticks}, {CLI_REPEATS} "
               f"children, exit 0): tick time {_spread(tick_ms)} ms, RTF {_spread(rtfs)}; "
               f"in-process RTF of phase 21 (Exec.run({RTF_TICKS[example]}), no history) "
               f"card {statistics.median(card_rtf):.4g}, CPU {statistics.median(cpu_rtf):.4g}; "
@@ -1733,7 +1787,7 @@ def _process_campaign_phase(batched_rollouts_per_s):
         card_wall = time.perf_counter() - t0
         mem_before, mem_peak = memory.stop()
         # rows 0-3 of the same plan on the CPU: a resume whose manifest lists
-        # rows 4-7 as done
+        # the plan's later rows (none at 4 samples) as done
         os.makedirs(cpu_dir)
         done = [f"{i:06d}" for i in range(CAMPAIGN_CPU_SAMPLES, CAMPAIGN_SAMPLES)]
         with open(os.path.join(cpu_dir, "campaign.manifest.json"), "w") as f:
@@ -1805,6 +1859,262 @@ def _f9_projection(gated_ms, plain_ms, ticks, every):
     return (n_gated * gated_ms + (ticks - n_gated) * plain_ms) / 1e3
 
 
+def _train_steps(loss_fn, params, steps, lr, device):
+    """``steps`` Adam steps (``torch.optim.Adam(lr=lr)``) of ``loss_fn``
+    over a copy of ``params`` on ``device``: per step (loss, gradients,
+    weights after the step, on the CPU; wall ms of the step, a host clock
+    ended by a synchronise) and the peak card memory of the steps above
+    what was allocated before them (None on the CPU)."""
+    params = {k: v.detach().clone().to(device).requires_grad_() for k, v in params.items()}
+    opt = torch.optim.Adam(list(params.values()), lr=lr)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for _ in range(steps):
+        _sync(device)
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        val = loss_fn(params)
+        val.backward()
+        opt.step()
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append((val.item(), {k: v.grad.cpu() for k, v in params.items()},
+                     {k: v.detach().cpu().clone() for k, v in params.items()}, ms))
+    peak = torch.cuda.max_memory_allocated() - base if device == "cuda" else None
+    return rows, peak
+
+
+def _hold_steps(label, card, cpu, tol=GRAD_TOL):
+    """``_hold`` of every step's loss, gradients and weights, the card's
+    ``_train_steps`` rows against the CPU's."""
+    def flat(rows):
+        out = {}
+        for i, (val, grads, weights, _) in enumerate(rows, 1):
+            out[f"step {i} loss"] = np.array([val])
+            out.update({f"step {i} grad {k}": v.numpy() for k, v in grads.items()})
+            out.update({f"step {i} {k}": v.numpy() for k, v in weights.items()})
+        return out
+
+    _hold(f"{label}, card against CPU", _errors_by_group(flat(card), flat(cpu)), tol)
+
+
+def _peak_mib(peak):
+    return f"{peak / 2**20:.4g} MiB"
+
+
+def _orbit_phase():
+    """Phase 32: orbit-retarget's value and gradient through 504 ticks on
+    the card (``el.rollout``, autograd): the finite difference at 60 ticks,
+    3 Adam steps (``solve``'s rule) against the CPU's, remat (8 segments)
+    against plain, ms per value-and-grad and the peak card memory of each,
+    card and CPU; a device trace of one gradient."""
+    from elodin_tpu_torch.examples.orbit_retarget import main as orbit
+
+    ticks, segs = orbit.TICKS, orbit.REMAT_SEGMENTS
+    v0 = torch.tensor(ORBIT_V0, dtype=torch.float64)
+
+    # the finite difference at 60 ticks on the card
+    loss = orbit.make_loss(ORBIT_FD_TICKS, None, "cuda")
+    v = v0.to("cuda").requires_grad_()
+    (g,) = torch.autograd.grad(loss(v), v)
+    with torch.no_grad():
+        fd = []
+        for i in range(3):
+            e = torch.zeros(3, dtype=torch.float64, device="cuda")
+            e[i] = ORBIT_FD_EPS
+            fd.append(((loss(v + e) - loss(v - e)) / (2 * ORBIT_FD_EPS)).item())
+    g = g.cpu().numpy()
+    fd_rel = np.abs(g - fd) / np.maximum(np.abs(fd), 1e-300)
+    print(f"orbit-retarget on the card, {ORBIT_FD_TICKS} ticks, at v0 = {ORBIT_V0}: gradient "
+          f"{g.tolist()}, central difference (eps {ORBIT_FD_EPS:g}) {fd}, relative "
+          f"difference {fd_rel.max():.3e} (rtol 1e-5, atol 1e-8)")
+    if not np.all(np.abs(g - fd) <= 1e-8 + 1e-5 * np.abs(fd)):
+        raise AssertionError("orbit-retarget: the card's gradient misses the finite difference")
+
+    # 3 Adam steps from solve's start, card and CPU; then remat
+    start = {"v0": torch.tensor([0.0, 1.0, 0.0], dtype=torch.float64)}
+    figures = {}
+    for device in ("cuda", "cpu"):
+        loss = orbit.make_loss(ticks, None, device)
+        rows, peak = _train_steps(lambda p: loss(p["v0"]), start, ORBIT_ADAM_STEPS,
+                                  orbit.LEARNING_RATE, device)
+        remat = orbit.make_loss(ticks, segs, device)
+        rrows, rpeak = _train_steps(lambda p: remat(p["v0"]), start, 1, orbit.LEARNING_RATE,
+                                    device)
+        figures[device] = (rows, peak, rrows, rpeak)
+        bitwise = rrows[0][0] == rows[0][0] and torch.equal(rrows[0][1]["v0"], rows[0][1]["v0"])
+        vrel = abs(rrows[0][0] - rows[0][0]) / abs(rows[0][0])
+        grel = ((rrows[0][1]["v0"] - rows[0][1]["v0"]).abs().max()
+                / rows[0][1]["v0"].abs().max()).item()
+        print(f"orbit-retarget on {device}, {ticks} ticks, f64: value-and-grad and an Adam step, "
+              f"plain {_spread([r[3] for r in rows])} ms over {ORBIT_ADAM_STEPS} steps (runs "
+              + ", ".join(f"{r[3]:.6g}" for r in rows) + f"); remat ({segs} segments) "
+              f"{rrows[0][3]:.6g} ms; remat against plain: value {vrel:.3e} (tol 1e-12), "
+              f"gradient {grel:.3e} (tol 1e-9), bitwise {bitwise}"
+              + (f"; peak card memory above the columns: plain {_peak_mib(peak)}, remat "
+                 f"{_peak_mib(rpeak)}" if device == "cuda" else ""))
+        if not (vrel <= 1e-12 and grel <= 1e-9):
+            raise AssertionError(f"orbit-retarget on {device}: remat differs from plain")
+    card, cpu = figures["cuda"][0], figures["cpu"][0]
+    _hold_steps(f"orbit-retarget, {ticks} ticks, {ORBIT_ADAM_STEPS} Adam steps", card, cpu)
+    print(f"orbit-retarget: first loss {card[0][0]!r} (CPU {cpu[0][0]!r}), gradient "
+          f"{card[0][1]['v0'].tolist()}, v0 after {ORBIT_ADAM_STEPS} steps "
+          f"{card[-1][2]['v0'].tolist()}")
+
+    # one gradient traced (cut in depth)
+    loss = orbit.make_loss(ORBIT_TRACE_TICKS, None, "cuda")
+    v = v0.to("cuda").requires_grad_()
+    ops, busy, wall = _device_trace(lambda: torch.autograd.grad(loss(v), v))
+    print(f"device trace, orbit-retarget value-and-grad ({ORBIT_TRACE_TICKS} ticks, f64): "
+          f"{ops / ORBIT_TRACE_TICKS:.1f} device ops/tick (forward and backward), device busy "
+          f"{busy / ORBIT_TRACE_TICKS:.4g} ms/tick, wall {wall / ORBIT_TRACE_TICKS:.4g} "
+          f"ms/tick, idle share {1 - busy / wall:.2%}")
+
+
+def _hover_phase():
+    """Phase 33: neural-hover's training at full width and horizon (16
+    starts x 240 ticks, ``torch.func.vmap`` over the starts): 2 Adam steps
+    on the card against the CPU, ms per step, a device trace of one step
+    (cut to 24 ticks), and ``evaluate`` finite."""
+    from elodin_tpu_torch.examples.neural_hover import main as hover
+
+    params = hover.init_params(0, "cpu")
+    steps = {}
+    for device in ("cuda", "cpu"):
+        loss = hover.make_loss(hover.starts(16), hover.TICKS, device)
+        steps[device], peak = _train_steps(loss, params, HOVER_STEPS, hover.LEARNING_RATE, device)
+        print(f"neural-hover training step on {device} (16 starts x {hover.TICKS} ticks, f64, "
+              f"value-and-grad and Adam): {_spread([r[3] for r in steps[device]])} ms (runs "
+              + ", ".join(f"{r[3]:.6g}" for r in steps[device]) + "); losses "
+              + ", ".join(f"{r[0]!r}" for r in steps[device])
+              + (f"; peak card memory {_peak_mib(peak)}" if peak is not None else ""))
+    _hold_steps(f"neural-hover, 16 x {hover.TICKS}, {HOVER_STEPS} Adam steps",
+                steps["cuda"], steps["cpu"])
+    trained = {k: v.to("cuda") for k, v in steps["cuda"][-1][2].items()}
+    loss = hover.make_loss(hover.starts(16), HOVER_TRACE_TICKS, "cuda")
+    p = {k: v.clone().requires_grad_() for k, v in trained.items()}
+    ops, busy, wall = _device_trace(lambda: torch.autograd.grad(loss(p), list(p.values())))
+    print(f"device trace, neural-hover value-and-grad (16 x {HOVER_TRACE_TICKS} ticks, f64): "
+          f"{ops / HOVER_TRACE_TICKS:.1f} device ops/tick (forward and backward), device busy "
+          f"{busy / HOVER_TRACE_TICKS:.4g} ms/tick, wall {wall / HOVER_TRACE_TICKS:.4g} ms/tick, "
+          f"idle share {1 - busy / wall:.2%}")
+    miss, speed = hover.evaluate(trained)
+    print(f"neural-hover evaluate on the card after {HOVER_STEPS} steps: miss {miss:.6g} m, "
+          f"speed {speed:.6g} m/s")
+    if not (np.isfinite(miss) and np.isfinite(speed)):
+        raise AssertionError("neural-hover: evaluate is not finite")
+
+
+def _card_vs_cpu(label, fn, tol):
+    """``_hold`` of fn(device), a dict of tensors, on the card against the
+    CPU."""
+    card, cpu = fn("cuda"), fn("cpu")
+    if any(t.device.type != "cuda" for t in card.values()):
+        raise AssertionError(f"{label}: a result is not on the card")
+    _hold(f"{label}, card against CPU", _errors_by_group(
+        {k: v.cpu().numpy() for k, v in card.items()}, {k: v.numpy() for k, v in cpu.items()}),
+        tol)
+
+
+def _rest_phase():
+    """Phase 34: cube-sat-pysim's TorchSim against Exec on the card; the
+    UKF, MagKal, MAG.I.CAL, TRIAD and J2 card against CPU; both kernels
+    refuse an input that requires grad."""
+    from elodin_tpu_torch import adcs
+    from elodin_tpu_torch.examples.cube_sat import main as cube
+    from elodin_tpu_torch.examples.cube_sat_pysim import main as pysim
+    from elodin_tpu_torch.gravity import J2
+    from elodin_tpu_torch.models.sixdof_batch import batched_sixdof_init
+    from elodin_tpu_torch.ops import pairwise as pw
+    from elodin_tpu_torch.ops import sixdof_kernel as sk
+
+    omegas = pysim.run(PYSIM_CHUNK, PYSIM_CHUNKS, "cuda")
+    sim = cube.build_world().to_jax(cube.build_system(), device="cuda")
+    exec_ = cube.build_world().build(cube.build_system(), simulation_rate=1.0 / cube.SIM_TIME_STEP,
+                                     device="cuda")
+    exec_.record_history = False
+    ref = []
+    for _ in range(PYSIM_CHUNKS):
+        sim.step(PYSIM_CHUNK)
+        exec_.run(PYSIM_CHUNK, show_progress=False)
+        ref.append(float(np.linalg.norm(exec_.read_component("ore_sat.world_vel")[:3])))
+    errs = _errors_by_group({k: v.cpu().numpy() for k, v in sim.state.items()},
+                            {k: v.cpu().numpy() for k, v in exec_.cols.items()})
+    omega_rel = max(abs(a - b) / abs(b) for a, b in zip(omegas, ref))
+    print(f"cube-sat-pysim on the card ({PYSIM_CHUNKS} chunks of {PYSIM_CHUNK} ticks through "
+          f"World.to_jax / TorchSim): angular speeds {omegas} against Exec's {ref}, relative "
+          f"{omega_rel:.3e}; tick {sim.get_tick_count()} and {exec_.tick()}")
+    _hold("cube-sat TorchSim against Exec on the card, every column", errs, 1e-12)
+    if not (omega_rel <= 1e-12 and sim.get_tick_count() == exec_.tick()):
+        raise AssertionError("cube-sat-pysim differs from Exec")
+
+    rng = np.random.default_rng(5)
+    b_true = np.array([12.0, -7.0, 4.0])
+    d_true = np.array([[0.02, 0.005, 0.0], [0.005, -0.015, 0.002], [0.0, 0.002, 0.01]])
+    dirs = rng.normal(size=(MAGKAL_READINGS, 3))
+    fields = 45.0 * dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
+    readings = fields @ (np.eye(3) + d_true).T + b_true
+
+    def magkal(device):
+        kal = adcs.MagKal(device=device)
+        for z, f in zip(readings, fields):
+            kal.update(z, f)
+        return {"x_hat": kal.state.x_hat, "covar": kal.state.covar}
+
+    def ukf(device):
+        state = adcs.UkfState(*(torch.tensor(x, dtype=torch.float64, device=device) for x in (
+            [0.0, 1.0], np.eye(2), np.eye(2) * 1e-4, np.eye(1) * 1e-2)),
+            config=adcs.MerweConfig(2, 1.0, 2.0, 1.0))
+        for k in range(50):
+            z = torch.tensor([0.07 * (k + 1) + 0.1 * np.sin(k)], dtype=torch.float64,
+                             device=device)
+            state = state.update(z, lambda x: torch.stack([x[0] + 0.1 * x[1], x[1]]),
+                                 lambda x, _z: x[:1])
+        return {"x_hat": state.x_hat, "covar": state.covar}
+
+    y = dirs[:64] / np.linalg.norm(dirs[:64], axis=1, keepdims=True) @ np.diag([1.2, 0.9, 1.1]) \
+        + np.array([0.3, -0.2, 0.5])
+
+    def magical(device):
+        m, t, h, done = adcs.magical_calibrate(torch.tensor(y, device=device))
+        if not bool(done):
+            raise AssertionError(f"magical_calibrate on {device} did not converge")
+        return {"m": m, "t": t, "h": h}
+
+    def triad(device):
+        a, b = (torch.tensor(x, device=device) for x in (dirs[:32], readings[:32]))
+        return {"dcm": adcs.triad(a, b, a.flip(0), b.flip(0))}
+
+    def j2(device):
+        r = torch.tensor(fields * 1.6e5, device=device)  # radii ~7.2e6 m
+        return {"force": J2().force(r, torch.ones(len(r), dtype=r.dtype, device=device))}
+
+    _card_vs_cpu(f"MagKal, {MAGKAL_READINGS} readings", magkal, 1e-8)
+    _card_vs_cpu("UKF linear tracker, 50 updates", ukf, 1e-10)
+    _card_vs_cpu("magical_calibrate, 64 readings", magical, 1e-12)
+    _card_vs_cpu("triad, 32 pairs", triad, 1e-12)
+    _card_vs_cpu(f"J2 force, {MAGKAL_READINGS} positions", j2, 1e-12)
+
+    cols = batched_sixdof_init(64, seed=1)
+    vel = torch.tensor(cols[1], device="cuda", requires_grad=True)
+    pos = torch.tensor(fields[:64], device="cuda", requires_grad=True)
+    refused = []
+    for name, fn in (("sixdof_rollout", lambda: sk.sixdof_rollout(
+            cols[0], vel, cols[2], DT, 5, device="cuda", dtype=torch.float64)),
+            ("pairwise_gravity", lambda: pw.pairwise_gravity(pos, torch.ones_like(pos[:, 0])))):
+        try:
+            fn()
+        except RuntimeError as e:
+            if "no backward pass" in str(e):
+                refused.append(name)
+    print(f"kernels refusing an input that requires grad on the card: {refused}")
+    if refused != ["sixdof_rollout", "pairwise_gravity"]:
+        raise AssertionError(f"kernels that accepted an input requiring grad: {refused}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1860,11 +2170,18 @@ def main() -> int:
     _process_campaign_phase(landing_rollouts_per_s)
     _clock("phase 31")
 
+    _no_launches("phase 32, orbit-retarget", _orbit_phase)
+    _clock("phase 32")
+    _no_launches("phase 33, neural-hover", _hover_phase)
+    _clock("phase 33")
+    _no_launches("phase 34, cube-sat-pysim, adcs and J2", _rest_phase)
+    _clock("phase 34")
+
     if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
            for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
 
-    # 32. results
+    # 35. results
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

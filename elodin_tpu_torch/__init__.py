@@ -9,9 +9,11 @@ torch tensors on one device.  ``World.run`` makes every sim a CLI
 process-per-sample Monte Carlo campaign (``monte_carlo.run_campaign``;
 ``monte_carlo.calibrate`` narrows its ranges).  ``lockstep.UdpLockstep``
 closes the loop with an external flight-software process over UDP;
-``tick_metrics`` times the run loop's phases.  The batched 6-dof RK4
-rollout (``ops.sixdof_kernel``) and all-pairs gravity (``ops.pairwise``)
-have hand-written CUDA kernels.  The package imports torch and numpy,
+``tick_metrics`` times the run loop's phases.  ``rollout`` (``diff.py``)
+makes a world and a system a differentiable function of its columns, and
+``World.to_torch`` (alias ``to_jax``) a functional ``TorchSim`` handle.
+The batched 6-dof RK4 rollout (``ops.sixdof_kernel``) and all-pairs
+gravity (``ops.pairwise``) have hand-written CUDA kernels.  The package imports torch and numpy,
 never JAX.
 """
 
@@ -22,6 +24,7 @@ from typing import Annotated  # noqa: F401  (el.Annotated)
 
 import torch
 
+from . import interop
 from ._config import set_float_policy  # noqa: F401
 from .component import (  # noqa: F401
     Component,
@@ -55,6 +58,10 @@ from .system import (  # noqa: F401
     system,
 )
 from .world import DEFAULT_TIME_STEP, WorldBuilder  # noqa: F401
+from .torchsim import TorchSim
+from .diff import rollout  # noqa: F401
+
+JaxSim = TorchSim  # the JAX package's name, for sources written against it
 
 __version__ = "0.1.0"
 
@@ -212,6 +219,39 @@ class World(WorldBuilder):
             backend=backend,
             device=device,
         )
+
+    def to_torch(
+        self,
+        system,
+        simulation_rate: float = 120.0,
+        default_playback_speed: float = 1.0,
+        max_ticks: int | None = None,
+        device: str | torch.device = "cuda",
+    ) -> TorchSim:
+        """A ``TorchSim`` of ``system`` over this world's columns on
+        ``device``: the step as a function of a dict of columns.  The
+        parameters before ``device`` are the JAX package's ``to_jax``, in
+        its order; ``default_playback_speed`` and ``max_ticks`` are
+        accepted and ignored, as there."""
+        from .system import SystemBuilder as _SB
+        from .system import as_system
+
+        self.set_sim_time_step(1.0 / simulation_rate)
+        meta, cols = self.snapshot()
+        sys_obj = as_system(system)
+
+        def step_fn(state: dict) -> dict:
+            b = _SB(meta, dict(state))
+            sys_obj.call(b)
+            return b.cols
+
+        entity_dict = {m.name: eid for eid, m in meta.entity_metadata.items()}
+        component_entity_dict = {n: list(ids) for n, ids in meta.comp_entities.items()}
+        return TorchSim(step_fn, interop.columns_from_numpy(cols, meta, device),
+                        entity_dict, component_entity_dict)
+
+    # the JAX package's name, so that sources written against it run as is
+    to_jax = to_torch
 
 
 from . import linalg as linalg  # noqa: E402,F401

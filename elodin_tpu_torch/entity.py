@@ -2,8 +2,10 @@
 
 The JAX package reads a component value's array through
 ``jax.tree_util.tree_flatten``; here ``_leaf`` does the same job without
-pytrees: the leaf of a value is its ``.inner`` (the spatial types), the
-edge's id pair, or the value itself, always as numpy.
+pytrees: the leaf of a value is the ``.inner`` of the port's own wrappers
+(the spatial classes and ``EntityId``), the edge's id pair, or the value
+itself (a tensor, a numpy array or a number), always as numpy.  A plain
+``torch.Tensor`` is never unwrapped: ``Tensor.inner`` is a method.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from .component import Component, ComponentType, component_type_of_value
+from .spatial import _SpatialBase
 
 _snake_case_pattern = re.compile(r"(?<!^)(?=[A-Z])")
 
@@ -27,10 +30,11 @@ def _leaf(value) -> np.ndarray:
     """The one array of a component value, as numpy."""
     if isinstance(value, Edge):
         return np.array([value.from_, value.to], dtype=np.uint64)
-    inner = getattr(value, "inner", value)
-    if isinstance(inner, torch.Tensor):
-        return inner.detach().cpu().numpy()
-    return np.asarray(inner)
+    if isinstance(value, (_SpatialBase, EntityId)):
+        value = value.inner
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
 
 
 class EntityId:

@@ -161,7 +161,14 @@ def build() -> None:
 
 def _check(pos, mass) -> int:
     """The kernel's input contract; returns N.  Raises before any library
-    is loaded."""
+    is loaded.  The kernel has no backward pass (nor has the JAX
+    package's), so an input that requires grad is refused while autograd
+    records: the result would carry no gradient."""
+    if torch.is_grad_enabled() and (pos.requires_grad or mass.requires_grad):
+        raise RuntimeError(
+            "pairwise_gravity: the CUDA kernel has no backward pass and an input "
+            "requires grad; pass use_kernel=False (the differentiable plain "
+            "version) or detach the inputs")
     n = pos.shape[0] if pos.dim() == 2 else -1
     if pos.shape != (n, 3) or mass.shape != (n,):
         raise ValueError(f"expected (N, 3) positions and (N,) masses, got "

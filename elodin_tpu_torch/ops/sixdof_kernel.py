@@ -199,8 +199,16 @@ def build() -> None:
 
 
 def _rollout_cuda(u, par, dt: float, ticks: int):
-    """Launch csrc/sixdof_rk4.cu on ``u``'s device and current stream."""
+    """Launch csrc/sixdof_rk4.cu on ``u``'s device and current stream.
+    The kernel has no backward pass (nor has the JAX package's), so an
+    input that requires grad is refused while autograd records: the result
+    would carry no gradient."""
     global LAUNCHES
+    if torch.is_grad_enabled() and (u.requires_grad or par.requires_grad):
+        raise RuntimeError(
+            "sixdof_rollout: the CUDA kernel has no backward pass and an input "
+            "requires grad; run sixdof_rollout_reference (differentiable) or "
+            "detach the inputs")
     if u.device.type != "cuda" or par.device != u.device:
         raise ValueError(f"kernel needs CUDA tensors on one device, got "
                          f"{u.device} and {par.device}")
@@ -241,8 +249,9 @@ def sixdof_rollout(pos, vel, inertia, dt: float, ticks: int, *, device,
     """Run ``ticks`` RK4 ticks of the flagship batched 6-dof model in one
     kernel launch.  Returns (pos (N,7), vel (N,6)) tensors on ``device``.
 
-    On a CUDA device this launches the CUDA kernel (or raises); on the CPU
-    it runs the plain PyTorch version."""
+    On a CUDA device this launches the CUDA kernel (or raises; it refuses
+    an input that requires grad); on the CPU it runs the plain PyTorch
+    version, which is differentiable."""
     u, par = pack_state(pos, vel, inertia, device=device, dtype=dtype)
     return unpack_state(_rollout(u, par, dt, ticks))
 

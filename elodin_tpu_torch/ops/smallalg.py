@@ -1,6 +1,9 @@
 """Small-matrix linear algebra in plain arithmetic ops (counterpart of
-``elodin_tpu/ops/smallalg.py``: ``psd_solve`` and the partial-pivot LU,
-``lu_factor`` / ``lu_solve`` / ``lu_det``).
+``elodin_tpu/ops/smallalg.py``): the Cholesky factors
+(``cholesky_lower`` / ``cholesky_upper``), ``psd_solve`` and ``psd_inv``
+with the JAX package's ``jitter`` (added to the diagonal when nonzero),
+the partial-pivot LU (``lu_factor`` / ``lu_solve`` / ``lu_det``) and the
+closed-form ``inv_3x3``.
 
 The Cholesky factor, the LU and the triangular solves are unrolled over the
 matrix's static size into elementwise ops, gathers and selects, in the JAX
@@ -8,8 +11,7 @@ package's order, so a solve issues no library call that checks its
 factorization on the host (``torch.linalg.cholesky`` would) and runs as
 is under ``torch.func.vmap``.  A Cholesky pivot below the dtype's smallest
 normal number is floored there, as in the JAX package.  Leading batch axes
-work throughout.  ``inv_3x3``, ``psd_inv``, the upper Cholesky factor and
-the ``jitter`` option are not ported.
+work throughout.
 """
 
 from __future__ import annotations
@@ -47,9 +49,29 @@ def _dot(x: list, y: list, k: int) -> Tensor:
     return acc
 
 
-def psd_solve(a: Tensor, b: Tensor) -> Tensor:
+def _jittered(a: Tensor, jitter: float) -> Tensor:
+    """``a`` plus ``jitter`` on its diagonal; ``a`` itself at 0."""
+    if not jitter:
+        return a
+    return a + jitter * torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+
+
+def cholesky_lower(a: Tensor, jitter: float = 0.0) -> Tensor:
+    """Lower-triangular Cholesky factor of SPD ``a`` (..., n, n)."""
+    low = _cholesky_entries(_jittered(a, jitter))
+    zero = torch.zeros_like(a[..., 0, 0])
+    return torch.stack([torch.stack([x if x is not None else zero for x in row], dim=-1)
+                        for row in low], dim=-2)
+
+
+def cholesky_upper(a: Tensor, jitter: float = 0.0) -> Tensor:
+    """Upper factor U with a = U^T U (the Merwe sigma-point convention)."""
+    return cholesky_lower(a, jitter).transpose(-1, -2)
+
+
+def psd_solve(a: Tensor, b: Tensor, jitter: float = 0.0) -> Tensor:
     """Solve a x = b for SPD ``a`` (..., n, n) and ``b`` (..., n, m)."""
-    low = _cholesky_entries(a)
+    low = _cholesky_entries(_jittered(a, jitter))
     n = a.shape[-1]
     # forward: l y = b
     ys = []
@@ -66,6 +88,12 @@ def psd_solve(a: Tensor, b: Tensor) -> Tensor:
             acc = acc - low[j][i][..., None] * xs[j]
         xs[i] = acc / low[i][i][..., None]
     return torch.stack(xs, dim=-2)
+
+
+def psd_inv(a: Tensor, jitter: float = 0.0) -> Tensor:
+    """Inverse of SPD ``a`` (..., n, n) by the unrolled Cholesky solve."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    return psd_solve(a, eye.expand(a.shape), jitter)
 
 
 def solve_tri_lower(low: Tensor, b: Tensor) -> Tensor:
@@ -143,3 +171,18 @@ def lu_solve(lu: Tensor, perm: Tensor, b: Tensor) -> Tensor:
 def lu_det(lu: Tensor, sign: Tensor) -> Tensor:
     """The determinant from ``lu_factor``'s output."""
     return sign * torch.prod(torch.diagonal(lu, dim1=-2, dim2=-1), dim=-1)
+
+
+def inv_3x3(a: Tensor) -> Tensor:
+    """Closed-form adjugate inverse of general (..., 3, 3) matrices."""
+    m = [[a[..., i, j] for j in range(3)] for i in range(3)]
+    c00 = m[1][1] * m[2][2] - m[1][2] * m[2][1]
+    c01 = m[1][2] * m[2][0] - m[1][0] * m[2][2]
+    c02 = m[1][0] * m[2][1] - m[1][1] * m[2][0]
+    det = m[0][0] * c00 + m[0][1] * c01 + m[0][2] * c02
+    adj = [
+        [c00, m[0][2] * m[2][1] - m[0][1] * m[2][2], m[0][1] * m[1][2] - m[0][2] * m[1][1]],
+        [c01, m[0][0] * m[2][2] - m[0][2] * m[2][0], m[0][2] * m[1][0] - m[0][0] * m[1][2]],
+        [c02, m[0][1] * m[2][0] - m[0][0] * m[2][1], m[0][0] * m[1][1] - m[0][1] * m[1][0]],
+    ]
+    return torch.stack([torch.stack(row, dim=-1) for row in adj], dim=-2) / det[..., None, None]

@@ -61,6 +61,16 @@ PORT_MODULES = [
     "elodin_tpu_torch.examples.monte_carlo.main",
     "elodin_tpu_torch.examples.betaflight_sitl.main",
     "elodin_tpu_torch.examples.betaflight_sitl.controller",
+    "elodin_tpu_torch.diff",
+    "elodin_tpu_torch.torchsim",
+    "elodin_tpu_torch.examples.orbit_retarget.main",
+    "elodin_tpu_torch.examples.neural_hover.main",
+    "elodin_tpu_torch.examples.cube_sat_pysim.main",
+    "elodin_tpu_torch.adcs.triad",
+    "elodin_tpu_torch.adcs.ukf",
+    "elodin_tpu_torch.adcs.magical",
+    "elodin_tpu_torch.adcs.magkal",
+    "elodin_tpu_torch.gravity.j2",
 ]
 
 

@@ -178,3 +178,20 @@ def test_misaligned_inputs_are_copied_for_the_kernel():
     out = pw._aligned(view)
     assert out.data_ptr() % 16 == 0 and torch.equal(out, view)
     assert pw._aligned(pos) is pos
+
+
+def test_kernel_refuses_an_input_that_requires_grad():
+    """The kernel has no backward pass: while autograd records, its wrapper
+    refuses an input that requires grad (before it looks at the device or
+    loads the library); the plain version stays differentiable."""
+    pos = torch.randn(8, 3, dtype=torch.float64, generator=torch.Generator().manual_seed(0))
+    mass = torch.ones(8, dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        pw.pairwise_gravity(pos.clone().requires_grad_(), mass, use_kernel=True)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        pw.pairwise_gravity(pos, mass.clone().requires_grad_(), use_kernel=True)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
+        pw.pairwise_gravity(pos.clone().requires_grad_(), mass, use_kernel=True)
+    p = pos.clone().requires_grad_()
+    (g,) = torch.autograd.grad(pw.pairwise_gravity(p, mass).square().sum(), p)
+    assert torch.isfinite(g).all() and g.abs().max() > 0

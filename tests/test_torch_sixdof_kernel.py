@@ -129,3 +129,21 @@ def test_batched_init_matches_jax_package():
 
     for ours, ref in zip(batched_sixdof_init(100, seed=7), jinit(100, seed=7)):
         np.testing.assert_array_equal(ours, ref)
+
+
+def test_kernel_refuses_an_input_that_requires_grad():
+    """The kernel has no backward pass: while autograd records, its wrapper
+    refuses an input that requires grad (before it looks at the device or
+    loads the library); the plain version stays differentiable."""
+    cols = batched_sixdof_init(4)
+    u, par = sk.pack_state(*cols, device="cpu", dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        sk._rollout_cuda(u.clone().requires_grad_(), par, DT, 2)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        sk._rollout_cuda(u, par.clone().requires_grad_(), DT, 2)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
+        sk._rollout_cuda(u.clone().requires_grad_(), par, DT, 2)
+    vel = torch.tensor(cols[1], requires_grad=True)
+    pos, _ = sk.sixdof_rollout(cols[0], vel, cols[2], DT, 2, device="cpu", dtype=torch.float64)
+    (g,) = torch.autograd.grad(pos[:, 4:].sum(), vel)
+    assert torch.isfinite(g).all() and g[:, 3:].abs().min() > 0
