@@ -245,18 +245,18 @@ against CPU at ``GRAD_TOL`` (1e-9, max |Δ| / max |ref|) unless named:
 
 32. orbit-retarget (``examples.orbit_retarget``, ``el.rollout`` through
     its 504 RK4 ticks): the gradient at 60 ticks on the card against the
-    central finite difference (eps 1e-6, rtol 1e-5, atol 1e-8); 3 Adam
+    central finite difference (eps 1e-6, rtol 1e-5, atol 1e-8); 2 Adam
     steps from ``solve``'s start (``torch.optim.Adam(lr=3e-2)``) on the
     card and on the CPU, each step's loss, gradient and iterate held card
-    against CPU, ms per value-and-grad and step (median of the 3), the
+    against CPU, ms per value-and-grad and step (median of the 2), the
     peak card memory above what was allocated before them; one step with
     8 remat segments on each, held against plain (value rtol 1e-12,
     gradient 1e-9; bitwise printed), its ms and peak memory; the device
     trace of one value-and-grad cut to 16 ticks (device ops a tick,
     forward and backward, idle share).
 33. neural-hover (``examples.neural_hover``) at its full width and
-    horizon, 16 starts x 240 ticks under ``torch.func.vmap``: 2 Adam
-    steps from the threefry initialisation on the card and on the CPU,
+    horizon, 16 starts x 240 ticks under ``torch.func.vmap``: 1 Adam
+    step from the threefry initialisation on the card and on the CPU,
     losses, gradients and weights held card against CPU, ms per step,
     the peak card memory; the device trace of one value-and-grad cut to
     24 ticks; ``evaluate`` finite.
@@ -268,10 +268,40 @@ against CPU at ``GRAD_TOL`` (1e-9, max |Δ| / max |ref|) unless named:
     (1e-12), card against CPU; ``sixdof_rollout`` and
     ``pairwise_gravity`` refuse an input that requires grad on the card.
 
-35. a JSON line of the kernels (time, plain version's time and bound at
+The split over cards (``parallel/mesh.py``), on a mesh of 4 shards
+(``["cuda:0"] * 4`` on one card: repeated entries; ``cuda:0..3`` on four)
+and, with 2 or more cards other than 4, on every card too; the devices of
+each mesh are printed:
+
+35. the sharded path at full width, with both launch counts set to 0 just
+    before and read just after: ``sixdof_rollout_sharded`` at 131072
+    bodies x 4000 ticks and ``pairwise_gravity_sharded`` at 16384 bodies,
+    each in f32 and f64, must launch each kernel once a shard and call.
+    Then K1 sharded bitwise equal to one card's ``sixdof_rollout`` and,
+    at 20 ticks, held to the plain version; µs/tick of the sharded call
+    beside one card's call and one shard's launch alone.  K2 sharded held
+    against one card's call and the plain version (≤ 1e-4 f32, ≤ 1e-12
+    f64, max |Δ| / max |ref|); µs per call (20 back-to-back calls between
+    CUDA events) beside one card's re-timed call and each shard's row
+    block alone.  Each against the bound of the work its busiest card does (its
+    bodies, or its rows x N pairs).  The falcon9 campaign at 10000 samples (phase 13's
+    dispersions) from two starts in which the reductions across shards
+    decide: in flight with one DESCENT sample in the last shard (guidance
+    escalates in every shard on all 10 ticks) and all DOWN but two landers
+    in the last shard (``until=`` DOWN holds at tick 6, not before); 2-tick
+    segments, unsharded and sharded: every column within 1e-13 relative of
+    the unsharded run, those tick and guidance counts, no kernel launched;
+    ms/tick of each; the device trace of 3 sharded ticks, busy and idle
+    share per card.  Then ``parallel.dryrun.dryrun_multichip(4)`` on the
+    mesh.
+
+36. a JSON line of the kernels (time, plain version's time and bound at
     the main path's width, launches on the main path; no PyTorch call
-    computes either function, so ``library_ms`` is null), then the last
-    line ``{"ok": true, "device": {...}}``.
+    computes either function, so ``library_ms`` is null; under
+    ``sharded``, phase 35's launches, times and bound of the sharded
+    call, its max |Δ| against the plain version as ``max_abs_err`` is
+    above, and against one card as ``one_card_max_abs_err``), then the
+    last line ``{"ok": true, "device": {...}}``.
 """
 
 import cProfile
@@ -390,12 +420,17 @@ CAMPAIGN_SAMPLES, CAMPAIGN_CPU_SAMPLES, CAMPAIGN_WORKERS = 4, 4, 4  # 8 card sam
 CAMPAIGN_TIMEOUT_S = 900
 # phases 32-34: differentiable rollouts, the rest of adcs and gravity/j2
 ORBIT_V0 = (0.1, 1.0, 0.05)  # the start of phase 32's finite difference
-ORBIT_FD_TICKS, ORBIT_FD_EPS, ORBIT_ADAM_STEPS = 60, 1e-6, 3
+# Adam steps of phase 32 (3 until phase 35 took its time) and 33 (2 until then)
+ORBIT_FD_TICKS, ORBIT_FD_EPS, ORBIT_ADAM_STEPS = 60, 1e-6, 2
 ORBIT_TRACE_TICKS = 16  # one gradient traced, cut in depth (~3500 device ops a tick)
 GRAD_TOL = 1e-9  # card against CPU, values, gradients and iterates
-HOVER_STEPS, HOVER_TRACE_TICKS = 2, 24
+HOVER_STEPS, HOVER_TRACE_TICKS = 1, 24
 PYSIM_CHUNK, PYSIM_CHUNKS = 30, 2
 MAGKAL_READINGS = 300
+# phase 35: the split over cards
+SPLIT_SHARDS = 4  # shards of the mesh phase 35 always runs (repeated entries on fewer cards)
+SPLIT_F9_TICKS, SPLIT_F9_SEGMENT, SPLIT_F9_TOL, SPLIT_TRACE_TICKS = 10, 2, 1e-13, 3
+SPLIT_PLAIN_TICKS = 20  # ticks of K1's sharded call held to the plain version
 
 
 _START = time.perf_counter()
@@ -424,30 +459,56 @@ def _time_ms(fn, reps=3, calls=1):
     return min(times), statistics.median(times)
 
 
-def _device_trace(fn, attempts=TRACE_ATTEMPTS):
-    """(device ops, device busy ms, wall ms) of one call of fn() under
-    torch.profiler.  Busy is the sum of the durations of the device ops
-    (kernels and copies), which run on one stream.  The profiler at times
-    hands back a trace with no device op at all; fn() is then traced again,
-    up to ``attempts`` calls in all, and if none of them records a device
-    op the result is (0, nan, wall ms of the last): not measured."""
+def _trace_events(fn, attempts=TRACE_ATTEMPTS):
+    """(device events, wall ms) of one call of fn() under torch.profiler,
+    every card synchronised before and after.  The profiler at times hands
+    back a trace with no device op at all; fn() is then traced again, up to
+    ``attempts`` calls in all, and if none of them records a device op the
+    result is ([], wall ms of the last)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
     for attempt in range(1, attempts + 1):
-        torch.cuda.synchronize()
+        sync()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
-            torch.cuda.synchronize()
+            sync()
             wall_ms = (time.perf_counter() - t0) * 1e3
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if dev:
-            return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, wall_ms
+            return dev, wall_ms
         print(f"device trace: the profiler recorded no device op (call {attempt} of "
               f"{attempts})")
     print("device trace: device time not measured (nan below)")
-    return 0, math.nan, wall_ms
+    return [], wall_ms
+
+
+def _device_trace(fn, attempts=TRACE_ATTEMPTS):
+    """(device ops, device busy ms, wall ms) of one call of fn() under
+    torch.profiler (``_trace_events``).  Busy is the sum of the durations
+    of the device ops (kernels and copies), which run on one stream; with
+    no device op recorded the result is (0, nan, wall ms): not measured."""
+    dev, wall_ms = _trace_events(fn, attempts)
+    if not dev:
+        return 0, math.nan, wall_ms
+    return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, wall_ms
+
+
+def _device_trace_by_card(fn):
+    """({card index: (device ops, busy ms)}, wall ms) of one call of fn():
+    ``_device_trace`` split by the card each op ran on (empty: not
+    measured)."""
+    dev, wall_ms = _trace_events(fn)
+    cards = {}
+    for e in dev:
+        ops, busy = cards.get(e.device_index, (0, 0.0))
+        cards[e.device_index] = (ops + 1, busy + e.time_range.elapsed_us() / 1e3)
+    return cards, wall_ms
 
 
 def _host_profile(label, fn, ticks, top=10):
@@ -496,12 +557,14 @@ def _bound_by(resource):
     return "bytes" if resource == "memory" else "operations"
 
 
-def _pairwise_bound(n, dtype, eps=0.0):
-    """``_bound`` of one all-pairs call on ``n`` bodies: N^2 pairs, each
-    read and written value moved once (positions, masses, accelerations)."""
-    pairs = n * n
+def _pairwise_bound(n, dtype, eps=0.0, rows=None):
+    """``_bound`` of one all-pairs call on ``n`` bodies, or of a block of
+    ``rows`` of them against all n: rows x N pairs, each read and written
+    value moved once (n positions and masses, rows accelerations)."""
+    rows = n if rows is None else rows
+    pairs = rows * n
     return _bound(pairs * (PAIR_OPS[dtype] + (eps != 0.0)), pairs,
-                  7 * n * dtype.itemsize, dtype)
+                  (4 * n + 3 * rows) * dtype.itemsize, dtype)
 
 
 def _print_sixdof_sass(dtype):
@@ -2115,6 +2178,262 @@ def _rest_phase():
         raise AssertionError(f"kernels that accepted an input requiring grad: {refused}")
 
 
+def _split_meshes():
+    """The device lists phase 35 runs on: ``SPLIT_SHARDS`` shards over the
+    visible cards (repeated entries when there are fewer), and every card
+    when there are 2 or more and that is another list."""
+    count = torch.cuda.device_count()
+    shards = [f"cuda:{i % count}" for i in range(SPLIT_SHARDS)]
+    every = [f"cuda:{i}" for i in range(count)]
+    return [shards] + ([every] if count >= 2 and every != shards else [])
+
+
+def _busiest_rows(devices, n):
+    """The rows the busiest card of ``devices`` holds when n rows are cut
+    into one block a device (repeated devices hold several blocks)."""
+    from elodin_tpu_torch.parallel.mesh import row_blocks
+
+    rows = {}
+    for d, (a, b) in zip(devices, row_blocks(n, len(devices))):
+        rows[d] = rows.get(d, 0) + b - a
+    return max(rows.values())
+
+
+def _split_kernels(mesh, label):
+    """Phase 35's kernels on ``mesh``: the counted sharded calls, then each
+    held to one card and to its plain version, and timed against the bound
+    of the work its busiest card does; returns the ``sharded`` entries of
+    the kernels line."""
+    from elodin_tpu_torch.models.nbody import G
+    from elodin_tpu_torch.models.sixdof_batch import batched_sixdof_init
+    from elodin_tpu_torch.ops import pairwise as pw
+    from elodin_tpu_torch.ops import sixdof_kernel as sk
+    from elodin_tpu_torch.parallel.mesh import row_blocks
+
+    devices = mesh.axis_devices("dp")
+    shards, dtypes = len(devices), (torch.float32, torch.float64)
+    cols = batched_sixdof_init(BENCH_BODIES, seed=0)
+    snap = _nbody_snapshot(NBODY_BODIES)
+    nb = {d: (torch.as_tensor(snap["world_pos"][:, 4:], device="cuda", dtype=d).contiguous(),
+              torch.as_tensor(snap["inertia"][:, 6], device="cuda", dtype=d).contiguous())
+          for d in dtypes}
+
+    # the sharded path, counted
+    sk.LAUNCHES = pw.LAUNCHES = 0
+    k1 = {d: sk.sixdof_rollout_sharded(*cols, DT, BENCH_TICKS, mesh, dtype=d) for d in dtypes}
+    k2 = {d: pw.pairwise_gravity_sharded(*nb[d], mesh, g=G) for d in dtypes}
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    launches = {"sixdof_rk4": sk.LAUNCHES, "pairwise_gravity": pw.LAUNCHES}
+    print(f"{label}: launches of the sharded path {launches} (sixdof_rollout_sharded and "
+          f"pairwise_gravity_sharded, f32 and f64, {shards} shards)")
+    if launches != {"sixdof_rk4": 2 * shards, "pairwise_gravity": 2 * shards}:
+        raise AssertionError(f"{label}: not one launch a shard and call: {launches}")
+
+    out = {"sixdof_rk4": {}, "pairwise_gravity": {}}
+    k1_rows = _busiest_rows(devices, BENCH_BODIES)
+    k2_rows = _busiest_rows(devices, NBODY_BODIES)
+    k1_first = row_blocks(BENCH_BODIES, shards)[0][1]
+    k2_first = row_blocks(NBODY_BODIES, shards)[0][1]
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        args = dict(device="cuda", dtype=dtype)
+        dev_cols = [torch.as_tensor(c, **args) for c in cols]
+        one = sk.sixdof_rollout(*dev_cols, DT, BENCH_TICKS, **args)
+        if not all(torch.equal(a, b) for a, b in zip(k1[dtype], one)):
+            raise AssertionError(f"{label}: sharded K1 != one card ({dtype})")
+        short = sk.sixdof_rollout_sharded(*dev_cols, DT, SPLIT_PLAIN_TICKS, mesh, dtype=dtype)
+        plain = sk.sixdof_rollout_reference(*dev_cols, DT, SPLIT_PLAIN_TICKS, **args)
+        err, abs_err = _compare(f"{label}: K1 sharded vs plain, {BENCH_BODIES} bodies x "
+                                f"{SPLIT_PLAIN_TICKS} ticks, {dtype}", _state(short),
+                                _state(plain), SIXDOF_STATE, tol)
+        one_ms = _time_ms(lambda: sk.sixdof_rollout(*dev_cols, DT, BENCH_TICKS, **args))[0]
+        shard_ms = _time_ms(lambda: sk.sixdof_rollout_sharded(
+            *dev_cols, DT, BENCH_TICKS, mesh, dtype=dtype))[0]
+        first = [c[:k1_first] for c in dev_cols]
+        alone_ms = _time_ms(lambda: sk.sixdof_rollout(*first, DT, BENCH_TICKS, **args))[0]
+        bound = _bound(k1_rows * SIXDOF_TICK_OPS[dtype], k1_rows * SIXDOF_TICK_SFU,
+                       30 * k1_rows * dtype.itemsize / BENCH_TICKS, dtype)
+        tick_ms, one_tick_ms = shard_ms / BENCH_TICKS, one_ms / BENCH_TICKS
+        print(f"{label}: K1 {dtype}, {BENCH_BODIES} bodies x {BENCH_TICKS} ticks: sharded "
+              f"bitwise equal to one card; sharded {tick_ms * 1e3:.4g} us/tick, one card "
+              f"{one_tick_ms * 1e3:.4g} us/tick, one shard's {k1_first} bodies alone on one "
+              f"card {alone_ms / BENCH_TICKS * 1e3:.4g} us/tick; bound of the busiest card's "
+              f"{k1_rows} bodies {bound[0] * 1e3:.4g} us/tick ({bound[1]}), "
+              f"{bound[0] / tick_ms:.1%} of it")
+        out["sixdof_rk4"][str(dtype)[6:]] = {
+            "ms": tick_ms, "one_card_ms": one_tick_ms, "shard_alone_ms": alone_ms / BENCH_TICKS,
+            "bound_ms": bound[0], "bound_by": _bound_by(bound[1]), "max_abs_err": abs_err,
+            "plain_rel_err": err, "one_card_max_abs_err": 0.0}
+
+        pos, mass = nb[dtype]
+        one = pw.pairwise_gravity(pos, mass, g=G)
+        ref = pw.pairwise_gravity_reference(pos, mass, g=G)
+        errs = {}
+        for name, base in (("one card", one), ("plain", ref)):
+            d = (k2[dtype].double() - base.double()).abs().max().item()
+            errs[name] = (d / base.double().abs().max().item(), d)
+            if not (torch.isfinite(k2[dtype]).all() and errs[name][0] <= tol):
+                raise AssertionError(f"{label}: K2 sharded vs {name} {dtype}: "
+                                     f"{errs[name][0]:.3e}")
+        one_ms = _time_ms(lambda: pw.pairwise_gravity(pos, mass, g=G), reps=5, calls=20)[0]
+        shard_ms = _time_ms(lambda: pw.pairwise_gravity_sharded(pos, mass, mesh, g=G),
+                            reps=5, calls=20)[0]
+        alone = [_time_ms(lambda: pw.pairwise_gravity(pos, mass, g=G, row0=a, rows=b - a),
+                          reps=5, calls=20)[0] for a, b in row_blocks(NBODY_BODIES, shards)]
+        alone_ms = max(alone)
+        bound = _pairwise_bound(NBODY_BODIES, dtype, rows=k2_rows)
+        whole = _pairwise_bound(NBODY_BODIES, dtype)
+        plans = sorted({tuple(pw._launch_plan(NBODY_BODIES, pw._sm_count(0), b - a))
+                        for a, b in row_blocks(NBODY_BODIES, shards)})
+        print(f"{label}: K2 {dtype}, {NBODY_BODIES} bodies, {shards} row blocks (plans "
+              f"{plans}): sharded vs " + ", ".join(
+                  f"{name} max|Δ|/max|ref| {rel:.3e}" for name, (rel, _) in errs.items())
+              + f" (tol {tol:g}); sharded {shard_ms * 1e3:.4g} us/call, bound of the busiest "
+              f"card's {k2_rows} rows {bound[0] * 1e3:.4g} us ({bound[1]}), "
+              f"{bound[0] / shard_ms:.1%} of it; each shard's row block alone on one card "
+              f"{[round(t * 1e3, 2) for t in alone]} us/call, the slowest "
+              f"{_pairwise_bound(NBODY_BODIES, dtype, rows=k2_first)[0] / alone_ms:.1%} of its "
+              f"bound; one card re-timed {one_ms * 1e3:.4g} us/call, "
+              f"{whole[0] / one_ms:.1%} of its bound")
+        out["pairwise_gravity"][str(dtype)[6:]] = {
+            "ms": shard_ms, "one_card_ms": one_ms, "shard_alone_ms": alone_ms,
+            "bound_ms": bound[0], "bound_by": _bound_by(bound[1]),
+            "max_abs_err": errs["plain"][1], "plain_rel_err": errs["plain"][0],
+            "one_card_max_abs_err": errs["one card"][1]}
+    return {name: {"mesh": [str(d) for d in devices], "shards": shards,
+                   "launches": launches[name], **entry} for name, entry in out.items()}
+
+
+def _nbody_snapshot(n):
+    from elodin_tpu_torch.models import build_nbody
+
+    return build_nbody(n, seed=2).snapshot()[1]
+
+
+def _f9_decision_cols(n, shards):
+    """Two starts of phase 13's dispersed falcon9 campaign (``n`` samples,
+    LHS seed 0) in which the reductions across shards decide something
+    within phase 35's ticks, as numpy columns for ``from_columns``:
+
+    * "escalation": every sample in ASCENT at 20 km and climbing, the last
+      sample (in the last shard) in DESCENT.  Guidance escalates to full
+      rate in every shard, on every tick, and the other samples' thrust
+      direction moves with it (by ~4e-4 in 10 ticks): a gate that did not
+      join the shards would leave them at its 1-in-5 schedule;
+    * "touchdown": every sample DOWN but the last two, in LANDING 0.6 and
+      0.7 m over the LZ-1 deck at 5 m/s: they touch down on ticks 4 and 6,
+      so ``until_down`` holds at the tick-6 segment boundary and not
+      before.  A stop that did not wait for the last shard would come at
+      tick 2."""
+    from elodin_tpu_torch.examples.falcon9 import batched as f9
+    from elodin_tpu_torch.examples.falcon9 import sim
+    from elodin_tpu_torch.interop import columns_to_numpy
+
+    if n % shards or n // shards < 2:
+        raise ValueError(f"{n} samples over {shards} shards")
+    pad, _ = f9.make_campaign(n, seed=0, device="cpu")
+    base = columns_to_numpy(pad.cols, pad.meta)
+
+    esc = {k: v.copy() for k, v in base.items()}
+    esc["phase"][:] = sim.ASCENT
+    esc["lifted"][:] = 1.0
+    esc["world_pos"][..., 4:] += sim._ENU_T @ np.array([0.0, 0.0, 20000.0])
+    esc["world_vel"][..., 3:] = sim._ENU_T @ np.array([500.0, 500.0, 300.0])
+    esc["phase"][-1] = sim.DESCENT
+
+    down = {k: v.copy() for k, v in base.items()}
+    down["phase"][:] = sim.DOWN
+    down["lifted"][:] = 1.0
+    for j, height in ((n - 2, 0.6), (n - 1, 0.7)):
+        down["phase"][j] = sim.LANDING
+        down["world_pos"][j, ..., 4:] += sim._ENU_T @ (sim._LZ1_ENU + [0.0, 0.0, height])
+        down["world_vel"][j] = 0.0
+        down["world_vel"][j, ..., 3:] = -5.0 * sim._U_HAT
+    return {"escalation": esc, "touchdown": down}
+
+
+def _split_campaign(mesh, label):
+    """Phase 35's falcon9 campaigns on ``mesh``: each start of
+    ``_f9_decision_cols`` unsharded and sharded, through ``until_down`` in
+    2-tick segments, held column by column and to its decision; ms/tick,
+    and the sharded escalation ticks' device traces."""
+    from elodin_tpu_torch.examples.falcon9 import batched as f9
+    from elodin_tpu_torch.examples.falcon9 import sim
+    from elodin_tpu_torch.monte_carlo import BatchedCampaign
+
+    shards = len(mesh.axis_devices("dp"))
+    starts = _f9_decision_cols(F9_SAMPLES, shards)
+    # what each start must decide: (ticks run, guidance ticks)
+    decided = {"escalation": (SPLIT_F9_TICKS, SPLIT_F9_TICKS), "touchdown": (6, 6)}
+    prev = os.environ.get("ELODIN_MC_SEGMENT_TICKS")
+    os.environ["ELODIN_MC_SEGMENT_TICKS"] = str(SPLIT_F9_SEGMENT)
+    try:
+        for start, cols in starts.items():
+            runs = {}
+            for mode, kw in (("unsharded", dict(device="cuda")), ("sharded", dict(mesh=mesh))):
+                world, system = sim.build(None, sensors=False)
+                campaign = BatchedCampaign.from_columns(world, system, cols,
+                                                        simulation_rate=sim.SIM_RATE_HZ, **kw)
+                result = _no_launches(f"{label}: falcon9 {start}, {mode}", lambda: campaign.run(
+                    SPLIT_F9_TICKS, until=f9.until_down))
+                runs[mode] = (campaign, result)
+                print(f"{label}: falcon9 {F9_SAMPLES} samples from the {start} start, {mode}: "
+                      f"{result.ticks} ticks in {result.wall_seconds:.3f} s, "
+                      f"{result.wall_seconds / result.ticks * 1e3:.4g} ms/tick, guidance on "
+                      f"{campaign.gated_runs} ticks")
+            (ours, result), (_, ref) = runs["sharded"], runs["unsharded"]
+            seen = {mode: (r.ticks, c.gated_runs) for mode, (c, r) in runs.items()}
+            if set(seen.values()) != {decided[start]}:
+                raise AssertionError(f"{label}: falcon9 {start}: (ticks, guidance ticks) "
+                                     f"{seen}, expected {decided[start]}")
+            worst, bitwise = 0.0, True
+            for k in ref.final:
+                a, b = result.column(k), ref.column(k)
+                np.testing.assert_allclose(a, b, rtol=SPLIT_F9_TOL, atol=0,
+                                           err_msg=f"{label}: falcon9 {start} sharded != "
+                                                   f"unsharded, {k}")
+                bitwise &= bool(np.array_equal(a, b))
+                if a.dtype.kind == "f" and (a != b).any():
+                    d = np.abs(a.astype(np.float64) - b) / np.abs(b.astype(np.float64))
+                    worst = max(worst, float(np.nanmax(d[a != b])))
+            print(f"{label}: falcon9 {start} sharded vs unsharded: the same {result.ticks} "
+                  f"ticks and {ours.gated_runs} guidance ticks, every column within "
+                  f"{SPLIT_F9_TOL:g} relative (largest {worst:.3g}, bitwise {bitwise})")
+            if start == "escalation":
+                cards, wall = _device_trace_by_card(lambda: ours.run(SPLIT_TRACE_TICKS))
+                print(f"{label}: device trace, falcon9 sharded ({F9_SAMPLES} samples, "
+                      f"run({SPLIT_TRACE_TICKS})): wall {wall / SPLIT_TRACE_TICKS:.4g} ms/tick; "
+                      + ("; ".join(f"cuda:{i} {ops / SPLIT_TRACE_TICKS:.1f} device ops/tick, "
+                                   f"busy {busy / SPLIT_TRACE_TICKS:.4g} ms/tick, idle share "
+                                   f"{1 - busy / wall:.2%}"
+                                   for i, (ops, busy) in sorted(cards.items()))
+                         or "device time not measured"))
+    finally:
+        if prev is None:
+            del os.environ["ELODIN_MC_SEGMENT_TICKS"]
+        else:
+            os.environ["ELODIN_MC_SEGMENT_TICKS"] = prev
+
+
+def _split_phase(kernels):
+    """Phase 35: the split over cards, on each of ``_split_meshes``; adds
+    the first mesh's ``sharded`` entries to the kernels line."""
+    from elodin_tpu_torch.parallel import make_mesh
+    from elodin_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    for k, devices in enumerate(_split_meshes()):
+        mesh = make_mesh(devices=devices)
+        label = f"phase 35, mesh {mesh.shape} of {devices}"
+        print(f"{label}: devices {[str(d) for d in mesh.devices.flat]}")
+        sharded = _split_kernels(mesh, label)
+        if k == 0:
+            for entry in kernels:
+                entry["sharded"] = sharded[entry["name"]]
+        _split_campaign(mesh, label)
+        print(dryrun_multichip(len(devices), devices=devices))
+        _clock(label)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2176,12 +2495,14 @@ def main() -> int:
     _clock("phase 33")
     _no_launches("phase 34, cube-sat-pysim, adcs and J2", _rest_phase)
     _clock("phase 34")
+    _split_phase(kernels)
+    _clock("phase 35")
 
     if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
            for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
 
-    # 35. results
+    # 36. results
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -13,8 +13,13 @@ closes the loop with an external flight-software process over UDP;
 makes a world and a system a differentiable function of its columns, and
 ``World.to_torch`` (alias ``to_jax``) a functional ``TorchSim`` handle.
 The batched 6-dof RK4 rollout (``ops.sixdof_kernel``) and all-pairs
-gravity (``ops.pairwise``) have hand-written CUDA kernels.  The package imports torch and numpy,
-never JAX.
+gravity (``ops.pairwise``) have hand-written CUDA kernels.
+``elodin_tpu_torch.parallel`` (imported on its own, as the JAX package's
+``elodin_tpu.parallel`` is) cuts the sample axis, and the kernels' rows,
+over a mesh of devices: ``make_mesh``, ``sharded_step``,
+``BatchedCampaign(mesh=)``, ``sixdof_rollout_sharded``,
+``pairwise_gravity_sharded`` and ``parallel.dryrun.dryrun_multichip``.
+The package imports torch and numpy, never JAX.
 """
 
 from __future__ import annotations

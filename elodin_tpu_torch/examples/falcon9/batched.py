@@ -1,6 +1,7 @@
-"""Dispersed falcon9 RTLS campaign on one torch device (counterpart of
-``examples/falcon9/batched.py``): N missions with Latin-hypercube draws of
-the five dispersions, scored on the touchdown state.
+"""Dispersed falcon9 RTLS campaign on one torch device, or with the
+samples cut over a mesh (counterpart of ``examples/falcon9/batched.py``): N
+missions with Latin-hypercube draws of the five dispersions, scored on the
+touchdown state.
 
     python -m elodin_tpu_torch.examples.falcon9.batched N_SAMPLES TICKS --device cuda
 """
@@ -56,13 +57,15 @@ def overrides_of(draws: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     }
 
 
-def make_campaign(n_samples: int, seed: int = 0, device: str | torch.device = "cuda"):
+def make_campaign(n_samples: int, seed: int = 0, device: str | torch.device | None = None,
+                  mesh=None):
     """(campaign, draws): the mission without sensors, which are pure
-    observers (the physics and flight software are the same)."""
+    observers (the physics and flight software are the same), on ``device``
+    (``"cuda"`` by default) or with the samples cut over ``mesh``."""
     draws = dispersions(n_samples, seed)
     world, system = build(None, sensors=False)
     return BatchedCampaign(world, system, n_samples, overrides_of(draws),
-                           simulation_rate=SIM_RATE_HZ, device=device), draws
+                           simulation_rate=SIM_RATE_HZ, mesh=mesh, device=device), draws
 
 
 def until_down(cols):
@@ -134,9 +137,9 @@ def state_errors(ours: dict, ref: dict) -> dict[str, float]:
 
 
 def run_campaign(n_samples: int, ticks: int = DEFAULT_MAX_TICKS, seed: int = 0,
-                 device: str | torch.device = "cuda", out_dir=None,
-                 history_every: int = 0) -> dict:
-    campaign, draws = make_campaign(n_samples, seed, device)
+                 device: str | torch.device | None = None, out_dir=None,
+                 history_every: int = 0, mesh=None) -> dict:
+    campaign, draws = make_campaign(n_samples, seed, device, mesh)
     result = campaign.run(ticks, history_every=history_every,
                           history_components=HISTORY_COMPONENTS if history_every else None,
                           until=until_down)

@@ -1,7 +1,8 @@
-"""Dispersed landing campaign on one torch device (counterpart of
-``examples/monte-carlo/batched.py``): N landings with Latin-hypercube
-draws of the five parameters, advanced together through
-``monte_carlo.BatchedCampaign`` and scored on the touchdown velocity.
+"""Dispersed landing campaign on one torch device, or with the samples cut
+over a mesh (counterpart of ``examples/monte-carlo/batched.py``): N
+landings with Latin-hypercube draws of the five parameters, advanced
+together through ``monte_carlo.BatchedCampaign`` and scored on the
+touchdown velocity.
 
     python -m elodin_tpu_torch.examples.monte_carlo.batched N_SAMPLES TICKS --device cuda
 """
@@ -42,13 +43,16 @@ def overrides_of(draws: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     }
 
 
-def make_campaign(n_samples: int, seed: int = 0, device: str | torch.device = "cuda"):
+def make_campaign(n_samples: int, seed: int = 0, device: str | torch.device | None = None,
+                  mesh=None):
     """(campaign, draws) of ``n_samples`` landings from the template world
-    with default parameters."""
+    with default parameters, on ``device`` (``"cuda"`` by default) or with
+    the samples cut over ``mesh``."""
     draws = dispersions(n_samples, seed)
     world, system = build(None)
     return BatchedCampaign(world, system, n_samples, overrides_of(draws),
-                           simulation_rate=SIMULATION_RATE_HZ, device=device), draws
+                           simulation_rate=SIMULATION_RATE_HZ, mesh=mesh,
+                           device=device), draws
 
 
 def scores(result) -> dict[str, np.ndarray]:
@@ -79,8 +83,8 @@ def outcome(result) -> dict:
 
 
 def run_campaign(n_samples: int, ticks: int = DEFAULT_MAX_TICKS, seed: int = 0,
-                 device: str | torch.device = "cuda") -> dict:
-    campaign, _ = make_campaign(n_samples, seed, device)
+                 device: str | torch.device | None = None, mesh=None) -> dict:
+    campaign, _ = make_campaign(n_samples, seed, device, mesh)
     return outcome(campaign.run(ticks))
 
 

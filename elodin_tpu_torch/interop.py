@@ -67,14 +67,20 @@ def columns_from_numpy(cols: dict, meta, device,
     return out
 
 
+def sample_count(cols: dict) -> int:
+    """The sample count of a campaign's numpy columns, each ``(n_samples,
+    n_entities, *shape)``; raises unless it is the same in each."""
+    counts = {np.shape(v)[0] if np.ndim(v) else None for v in cols.values()}
+    if len(counts) != 1 or None in counts:
+        raise ValueError(f"columns disagree on the sample count: {sorted(map(str, counts))}")
+    return counts.pop()
+
+
 def campaign_columns_from_numpy(cols: dict, meta, device) -> dict[str, torch.Tensor]:
     """A campaign's numpy columns, each ``(n_samples, n_entities, *shape)``,
     -> the port's campaign state on ``device``; the sample count is read
     from the columns and must be the same in each."""
-    counts = {np.shape(v)[0] if np.ndim(v) else None for v in cols.values()}
-    if len(counts) != 1 or None in counts:
-        raise ValueError(f"columns disagree on the sample count: {sorted(map(str, counts))}")
-    return columns_from_numpy(cols, meta, device, n_samples=counts.pop())
+    return columns_from_numpy(cols, meta, device, n_samples=sample_count(cols))
 
 
 def columns_to_numpy(cols: dict, meta) -> dict[str, np.ndarray]:

@@ -1,5 +1,5 @@
-"""Batched Monte Carlo on one torch device (counterpart of
-``elodin_tpu/monte_carlo/batched.py``).
+"""Batched Monte Carlo on a torch device, or with the sample axis cut over
+a mesh of devices (counterpart of ``elodin_tpu/monte_carlo/batched.py``).
 
 Every component column gets a leading sample axis, the per-sample
 parameter draws are scattered into the initial state, and one tick of the
@@ -21,7 +21,8 @@ import torch
 from torch.func import vmap
 
 from ..execimpl import History
-from ..interop import campaign_columns_from_numpy, columns_to_numpy
+from ..interop import campaign_columns_from_numpy, columns_to_numpy, sample_count
+from ..parallel.mesh import NamedSharding, gather, on_device, put_global
 from ..six_dof import increment_sim_tick_system
 from ..system import Pipe, RateGroup, SystemBuilder, as_system, build_step
 
@@ -77,12 +78,27 @@ class BatchedResult:
 
 class BatchedCampaign:
     """``n_samples`` dispersed rollouts of one world and system, advanced
-    together on ``device``."""
+    together on ``device`` (``"cuda"`` by default), or with the sample axis
+    cut over the devices of ``mesh``.
+
+    With a mesh the samples split over its axis ``axis_name`` (or its first
+    axis when it has none by that name, as in the JAX package), placed by
+    ``parallel.put_global``: shard k holds samples ``[k n / s, (k + 1) n /
+    s)`` on the k-th device of that axis, and a sample count the axis does
+    not divide raises ``ValueError``, as ``jax.device_put`` does.  Each tick
+    steps every shard with the same vmapped tick; what joins the shards is
+    read on the host: a rate group's ``full_rate_when`` escalates every
+    shard when any sample of any shard asks (``RateGroup.active``),
+    ``until=`` stops when every sample of every shard holds it, and history
+    emits and the result are gathered in sample order on the axis's first
+    device.  The shards are issued in turn from the calling thread, each
+    under its device; a host thread a shard was measured slower on the card
+    (``PERF.md``, the split over cards)."""
 
     def __init__(self, world, system, n_samples: int,
                  overrides: dict[str, np.ndarray] | None = None,
-                 simulation_rate: float = 120.0,
-                 device: str | torch.device = "cuda"):
+                 simulation_rate: float = 120.0, mesh=None, axis_name: str = "samples",
+                 device: str | torch.device | None = None):
         world.set_sim_time_step(1.0 / simulation_rate)
         meta, cols = world.snapshot()
         n = int(n_samples)
@@ -96,12 +112,13 @@ class BatchedCampaign:
                 batched[comp][:, row] = values.reshape((n,) + batched[comp].shape[2:])
             else:
                 batched[qualified][:] = values.reshape((n,) + batched[qualified].shape[1:])
-        self._setup(meta, batched, system, device)
+        self._setup(meta, batched, system, device, mesh, axis_name)
 
     @classmethod
     def from_columns(cls, world, system, cols: dict,
                      simulation_rate: float = 120.0,
-                     device: str | torch.device = "cuda") -> "BatchedCampaign":
+                     device: str | torch.device | None = None, mesh=None,
+                     axis_name: str = "samples") -> "BatchedCampaign":
         """A campaign that starts from given columns with a sample axis,
         such as the JAX package's ``BatchedResult.final``, each checked
         against this package's ``world``
@@ -109,19 +126,49 @@ class BatchedCampaign:
         world.set_sim_time_step(1.0 / simulation_rate)
         meta, _ = world.snapshot()
         self = cls.__new__(cls)
-        self._setup(meta, {k: np.asarray(v) for k, v in cols.items()}, system, device)
+        self._setup(meta, {k: np.asarray(v) for k, v in cols.items()}, system, device,
+                    mesh, axis_name)
         return self
 
-    def _setup(self, meta, batched: dict, system, device) -> None:
+    def _setup(self, meta, batched: dict, system, device, mesh, axis_name) -> None:
         self.meta = meta
-        self.device = torch.device(device)
-        self.cols = campaign_columns_from_numpy(batched, meta, self.device)
-        self.n = next(iter(self.cols.values())).shape[0]
+        self.mesh, self.axis_name = mesh, axis_name
+        if mesh is None:
+            self.devices = [torch.device(device if device is not None else "cuda")]
+        elif device is not None:
+            raise ValueError(f"pass a device or a mesh, not both (device {device}, {mesh})")
+        else:
+            if axis_name not in mesh.axis_names:
+                self.axis_name = mesh.axis_names[0]
+            self.devices = mesh.axis_devices(self.axis_name)
+        self.device = self.devices[0]
+        self.n = sample_count(batched)
+        if mesh is None:
+            self._parts = [campaign_columns_from_numpy(batched, meta, self.device)]
+        else:
+            sharding = NamedSharding(mesh, (self.axis_name,))
+            placed = {k: put_global(sharding, v) for k, v in
+                      campaign_columns_from_numpy(batched, meta, "cpu").items()}
+            self._parts = [{k: p.shards[i] for k, p in placed.items()}
+                           for i in range(len(self.devices))]
         # the tick is sample-uniform (sample 0's, as the JAX package reads
         # it): tracked here so the rate gates need no device read
         self.tick = int(np.asarray(batched["tick"]).reshape(-1)[0])
         self.gated_runs = 0  # ticks on which a lifted RateGroup ran
         self._stages = self._build_stages(system)
+
+    @property
+    def cols(self) -> dict:
+        """The campaign's columns, whole (gathered on ``device`` when the
+        samples are cut over a mesh)."""
+        return self._gather(self._parts)
+
+    def _gather(self, parts: list[dict], dim: int = 0) -> dict:
+        """The shards' columns joined along their sample dimension ``dim``
+        on ``device`` (one shard's dict as it is)."""
+        if len(parts) == 1:
+            return parts[0]
+        return {k: gather([p[k] for p in parts], self.device, dim) for k in parts[0]}
 
     def _build_stages(self, system) -> list:
         """One batched tick as [(RateGroup or None, vmapped step)].  Each
@@ -155,25 +202,45 @@ class BatchedCampaign:
             stages.append((None, vstep(Pipe(*run))))
         return stages
 
-    def step(self, cols: dict) -> dict:
-        """One tick of every sample."""
+    def _each(self, f, parts: list[dict]) -> list[dict]:
+        """``f`` of every shard's columns, each under its device, in turn."""
+        out = []
+        for device, cols in zip(self.devices, parts):
+            with on_device(device):
+                out.append(f(cols))
+        return out
+
+    def _tick(self, parts: list[dict]) -> list[dict]:
+        """One tick of every sample of every shard."""
         self.tick += 1
         for rg, f in self._stages:
             if rg is None:
-                cols = f(cols)
-            elif rg.active(self.tick, cols):
+                parts = self._each(f, parts)
+            elif rg.active(self.tick, *parts):
                 self.gated_runs += 1
-                cols = f(cols)
-        return cols
+                parts = self._each(f, parts)
+        return parts
 
-    def _advance(self, cols: dict, ticks: int) -> dict:
+    def step(self, cols: dict) -> dict:
+        """One tick of every sample of ``cols``, the columns of a campaign
+        on one device."""
+        return self._tick([cols])[0]
+
+    def _advance(self, parts: list[dict], ticks: int) -> list[dict]:
         for _ in range(ticks):
-            cols = self.step(cols)
-        return cols
+            parts = self._tick(parts)
+        return parts
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for device in dict.fromkeys(self.devices):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+
+    def _all_done(self, until, parts: list[dict]) -> bool:
+        """``until`` holds for every sample of every shard (one device
+        read)."""
+        votes = [torch.all(until(p)).to(self.device) for p in parts]
+        return bool(torch.stack(votes).all())
 
     def run(self, ticks: int, history_every: int = 0,
             history_components: list[str] | None = None,
@@ -191,16 +258,13 @@ class BatchedCampaign:
         seg = int(os.environ.get("ELODIN_MC_SEGMENT_TICKS", "20000"))
         seg = max(1, min(seg, ticks))
 
-        def all_done(cols) -> bool:
-            return bool(torch.all(until(cols)))
-
         if history_every:
             if history_components:
                 resolver = History(self.meta)
                 selected = tuple(sorted({resolver.resolve(q)[0] if "." in q else q
                                          for q in history_components}))
             else:
-                selected = tuple(sorted(self.cols))
+                selected = tuple(sorted(self._parts[0]))
             n_emits, tail = divmod(ticks, history_every)
             if n_emits == 0:
                 raise ValueError(f"history_every={history_every} exceeds ticks={ticks}: "
@@ -209,49 +273,51 @@ class BatchedCampaign:
             emits_per_seg = max(1, min(n_emits, seg // max(1, history_every)))
             n_full, rem_emits = divmod(n_emits, emits_per_seg)
             t0 = time.perf_counter()
-            cols, ticks_run, stopped, chunks = self.cols, 0, False, []
+            parts, ticks_run, stopped, chunks = self._parts, 0, False, []
             for i in range(n_full + (1 if rem_emits else 0)):
                 emits = []
                 for _ in range(emits_per_seg if i < n_full else rem_emits):
-                    cols = self._advance(cols, history_every)
-                    emits.append({k: cols[k] for k in selected})
-                chunks.append(columns_to_numpy(
-                    {k: torch.stack([e[k] for e in emits]) for k in selected}, self.meta))
+                    parts = self._advance(parts, history_every)
+                    emits.append([{k: p[k] for k in selected} for p in parts])
+                # (emits, samples, ...), the shards' samples in order
+                chunks.append(columns_to_numpy(self._gather(
+                    [{k: torch.stack([e[s][k] for e in emits]) for k in selected}
+                     for s in range(len(parts))], dim=1), self.meta))
                 ticks_run += len(emits) * history_every
                 # the JAX package reads the predicate after each full
                 # segment, not after the remainder
-                if until is not None and i < n_full and all_done(cols):
+                if until is not None and i < n_full and self._all_done(until, parts):
                     stopped = True
                     break
             if tail and not stopped:
-                cols = self._advance(cols, tail)
+                parts = self._advance(parts, tail)
                 ticks_run += tail
             self._sync()
             wall = time.perf_counter() - t0
             history = {k: np.concatenate([c[k] for c in chunks], axis=0) for k in selected}
-            dt = float(cols["simulation_time_step"].reshape(-1)[0])
+            dt = float(parts[0]["simulation_time_step"].reshape(-1)[0])
             n_done = next(iter(history.values())).shape[0] if history else 0
             times = np.arange(1, n_done + 1, dtype=np.float64) * history_every * dt
-            self.cols = cols
-            return BatchedResult(self.meta, cols, self.n, wall, ticks_run,
+            self._parts = parts
+            return BatchedResult(self.meta, self._gather(parts), self.n, wall, ticks_run,
                                  history=history, history_times=times)
 
         n_full, rem = divmod(ticks, seg)
         t0 = time.perf_counter()
-        cols, ticks_run, stopped = self.cols, 0, False
+        parts, ticks_run, stopped = self._parts, 0, False
         for _ in range(n_full):
-            cols = self._advance(cols, seg)
+            parts = self._advance(parts, seg)
             ticks_run += seg
-            if until is not None and all_done(cols):
+            if until is not None and self._all_done(until, parts):
                 stopped = True
                 break
         if rem and not stopped:
-            cols = self._advance(cols, rem)
+            parts = self._advance(parts, rem)
             ticks_run += rem
         self._sync()
         wall = time.perf_counter() - t0
-        self.cols = cols
-        return BatchedResult(self.meta, cols, self.n, wall, ticks_run)
+        self._parts = parts
+        return BatchedResult(self.meta, self._gather(parts), self.n, wall, ticks_run)
 
 
 def write_artifacts(result: BatchedResult, out_dir, draws=None, scores=None,
@@ -332,7 +398,7 @@ def write_artifacts(result: BatchedResult, out_dir, draws=None, scores=None,
 
 def run_batched(world, system, n_samples: int, ticks: int,
                 overrides: dict[str, np.ndarray] | None = None,
-                simulation_rate: float = 120.0,
-                device: str | torch.device = "cuda") -> BatchedResult:
-    return BatchedCampaign(world, system, n_samples, overrides, simulation_rate,
-                           device).run(ticks)
+                simulation_rate: float = 120.0, mesh=None,
+                device: str | torch.device | None = None) -> BatchedResult:
+    return BatchedCampaign(world, system, n_samples, overrides, simulation_rate, mesh,
+                           device=device).run(ticks)

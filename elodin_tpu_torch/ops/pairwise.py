@@ -9,9 +9,12 @@ The kernel's launch plan (threads per CTA, bodies i per thread, CTAs per
 cluster splitting j, and the j-slice) comes from ``_launch_plan``.
 Self-pairs vanish through the exact ``d2 == 0 -> 1`` remap and a zero
 displacement, as in the JAX package; the comparison is ``== 0``, never a
-threshold.  Not ported: the Gram-matrix variant (rejected in the JAX
-package for its cancellation at orbital scale) and the sharded form
-(multi-GPU slice).
+threshold.  Each form computes a block of rows ``[row0, row0 + rows)``
+against all N bodies (the whole set by default), and
+``pairwise_gravity_sharded`` cuts the rows over the devices of a mesh, each
+device all-gathering the positions and masses.  Not ported: the
+Gram-matrix variant (rejected in the JAX package for its cancellation at
+orbital scale).
 """
 
 from __future__ import annotations
@@ -49,8 +52,11 @@ WARPS_PER_SM = 32
 
 
 def pairwise_gravity_reference(pos, mass, g: float = 6.6743e-11,
-                               eps: float = 0.0):
-    """Dense broadcast O(N^2) accelerations (N, 3), any dtype and device.
+                               eps: float = 0.0, *, row0: int = 0,
+                               rows: int | None = None):
+    """Dense broadcast O(N^2) accelerations (rows, 3) of bodies ``[row0,
+    row0 + rows)`` (all N by default) from all N bodies, any dtype and
+    device.
 
     Rows i are taken ``REFERENCE_CHUNK`` (1024) at a time, so the
     (chunk, N, 3) displacement intermediate stays bounded: at 16384 bodies
@@ -58,20 +64,30 @@ def pairwise_gravity_reference(pos, mass, g: float = 6.6743e-11,
     Each row sums over all j whatever the chunk; only the grouping of
     torch's reduction may change with it, by a few ulp."""
     n = pos.shape[0]
+    stop = _row_range(n, row0, rows)
     j = torch.arange(n, device=pos.device)
     out = []
-    for start in range(0, n, REFERENCE_CHUNK):
-        rows = slice(start, min(start + REFERENCE_CHUNK, n))
-        r = pos[None, :, :] - pos[rows, None, :]  # (i, j, 3): vector i -> j
+    for start in range(row0, stop, REFERENCE_CHUNK):
+        block = slice(start, min(start + REFERENCE_CHUNK, stop))
+        r = pos[None, :, :] - pos[block, None, :]  # (i, j, 3): vector i -> j
         d2 = torch.sum(r * r, dim=-1) + eps * eps
         d2 = torch.where(d2 == 0.0, 1.0, d2)  # self-interaction guard
         inv_d3 = d2 ** (-1.5)
-        eye = j[rows, None] == j[None, :]
+        eye = j[block, None] == j[None, :]
         inv_d3 = torch.where(eye, 0.0, inv_d3)
         out.append(g * torch.sum((inv_d3 * mass)[..., None] * r, dim=1))
     if not out:
         return pos.new_empty((0, 3))
     return torch.cat(out)
+
+
+def _row_range(n: int, row0: int, rows: int | None) -> int:
+    """The end of the row block ``[row0, row0 + rows)`` of ``n`` bodies
+    (``rows`` None: to the last); raises unless it lies inside them."""
+    stop = n if rows is None else row0 + rows
+    if not 0 <= row0 <= stop <= n:
+        raise ValueError(f"row block [{row0}, {stop}) outside the {n} bodies")
+    return stop
 
 
 # ---------------------------------------------------------------------------
@@ -94,9 +110,9 @@ class Plan(NamedTuple):
         """j-slices a row is cut into (warps of a cluster)."""
         return self.s * self.threads // 32
 
-    def grid(self, n: int) -> int:
-        """CTAs launched for ``n`` bodies."""
-        return _cdiv(n, 32 * self.r) * self.s
+    def grid(self, rows: int) -> int:
+        """CTAs launched for a block of ``rows`` rows."""
+        return _cdiv(rows, 32 * self.r) * self.s
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -113,18 +129,21 @@ def _plan(n: int, threads: int, r: int, s: int) -> Plan:
 
 
 @functools.cache
-def _launch_plan(n: int, sm_count: int) -> Plan:
-    """The kernel's plan for ``n >= 1`` bodies on a card of ``sm_count``
-    SMs, measured by ``scripts/pairwise_plan_sweep.py`` (the same plan is
-    the fastest or near it in f32 and f64).  Cached: a simulation asks for
-    the same N every tick.
+def _launch_plan(n: int, sm_count: int, rows: int | None = None) -> Plan:
+    """The kernel's plan for a block of ``rows >= 1`` rows (all ``n``
+    bodies by default) against ``n`` bodies on a card of ``sm_count`` SMs,
+    measured by ``scripts/pairwise_plan_sweep.py`` for whole calls (the same
+    plan is the fastest or near it in f32 and f64).  Cached: a simulation
+    asks for the same N every tick.
 
     Two rows a thread where that still gives every SM a row block, else
     one; a cluster of two CTAs a row block where the row blocks alone would
     leave SMs idle; then j is cut into as many slices (warps a cluster) as
-    fill the card with up to ``WARPS_PER_SM`` warps a SM in one wave."""
-    r = 2 if _cdiv(n, 64) >= sm_count else 1
-    i_blocks = _cdiv(n, 32 * r)
+    fill the card with up to ``WARPS_PER_SM`` warps a SM in one wave.  A
+    block of fewer rows thus cuts j finer."""
+    rows = n if rows is None else rows
+    r = 2 if _cdiv(rows, 64) >= sm_count else 1
+    i_blocks = _cdiv(rows, 32 * r)
     s = 1 if i_blocks >= sm_count else 2
     splits = max(1, min(_cdiv(n, TILE), MAX_WARPS * s, WARPS_PER_SM * sm_count // i_blocks))
     return _plan(n, 32 * _cdiv(splits, s), r, s)
@@ -145,7 +164,7 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # pos mass out
-            ctypes.c_int,  # n
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n row0 rows
             ctypes.c_double, ctypes.c_double,  # g eps2
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # the plan
             ctypes.c_void_p,  # stream
@@ -189,21 +208,24 @@ def _check(pos, mass) -> int:
     return n
 
 
-def _pairwise_gravity_cuda(pos, mass, g: float, eps: float, plan: Plan | None = None):
+def _pairwise_gravity_cuda(pos, mass, g: float, eps: float, plan: Plan | None = None,
+                           row0: int = 0, rows: int | None = None):
     """Launch csrc/pairwise_gravity.cu on ``pos``'s device and current
-    stream, by ``plan`` (default: ``_launch_plan`` for the device)."""
+    stream for rows ``[row0, row0 + rows)`` (all by default), by ``plan``
+    (default: ``_launch_plan`` for the device and the block)."""
     global LAUNCHES
     n = _check(pos, mass)
-    out = torch.empty_like(pos)
-    if n == 0:
+    rows = _row_range(n, row0, rows) - row0
+    out = pos.new_empty((rows, 3))
+    if rows == 0:
         return out
     launcher = getattr(_library(), _LAUNCHERS[pos.dtype])
     if plan is None:
-        plan = _launch_plan(n, _sm_count(pos.device.index))
+        plan = _launch_plan(n, _sm_count(pos.device.index), rows)
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         # eps^2 formed in double, as the JAX kernel's Python float is
-        err = launcher(pos.data_ptr(), mass.data_ptr(), out.data_ptr(), n,
+        err = launcher(pos.data_ptr(), mass.data_ptr(), out.data_ptr(), n, row0, rows,
                        float(g), float(eps) * float(eps), *plan, stream)
     if err != 0:
         raise RuntimeError(f"pairwise_gravity launch failed: cudaError {err}")
@@ -212,9 +234,11 @@ def _pairwise_gravity_cuda(pos, mass, g: float, eps: float, plan: Plan | None = 
 
 
 def pairwise_gravity(pos, mass, g: float = 6.6743e-11, eps: float = 0.0,
-                     use_kernel: bool | None = None):
-    """All-pairs gravitational acceleration (N, 3) of bodies at ``pos``
-    (N, 3) with masses ``mass`` (N,).
+                     use_kernel: bool | None = None, *, row0: int = 0,
+                     rows: int | None = None):
+    """All-pairs gravitational acceleration (rows, 3) of bodies ``[row0,
+    row0 + rows)`` (all N by default) from all the bodies at ``pos`` (N, 3)
+    with masses ``mass`` (N,).
 
     ``use_kernel=None`` launches the CUDA kernel on a CUDA tensor and runs
     the plain version on a CPU tensor; ``False`` runs the plain version on
@@ -222,8 +246,39 @@ def pairwise_gravity(pos, mass, g: float = 6.6743e-11, eps: float = 0.0,
     if use_kernel is None:
         use_kernel = pos.device.type != "cpu"
     if not use_kernel:
-        return pairwise_gravity_reference(pos, mass, g, eps)
-    return _pairwise_gravity_cuda(_aligned(pos), _aligned(mass), g, eps)
+        return pairwise_gravity_reference(pos, mass, g, eps, row0=row0, rows=rows)
+    return _pairwise_gravity_cuda(_aligned(pos), _aligned(mass), g, eps, row0=row0,
+                                  rows=rows)
+
+
+def pairwise_gravity_sharded(pos, mass, mesh, axis: str | None = None,
+                             g: float = 6.6743e-11, eps: float = 0.0):
+    """All-pairs gravity with the bodies cut over the devices of ``mesh``'s
+    ``axis`` (default: its first), as the JAX package's
+    ``pairwise_gravity_sharded`` cuts them.  Each device computes a
+    contiguous row block (sizes differing by at most one: N need not divide
+    the axis) from all N bodies, with the kernel's row-block form on a card
+    and the plain version on the CPU.  The JAX package places the row
+    blocks and all-gathers them; here the whole input already lies on one
+    device, so each other device receives the N positions and masses by
+    one peer copy each, all issued before any launch and without waiting,
+    and shards on one device share its copy.  Returns the (N, 3)
+    accelerations gathered on the axis's first device."""
+    from ..parallel.mesh import gather, on_device, row_blocks, send
+
+    devices = mesh.axis_devices(axis or mesh.axis_names[0])
+    pos, mass = (x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+                 for x in (pos, mass))
+    # every device's copy is sent before any launch: a peer copy runs on the
+    # source's stream, so one issued after a launch there would wait for it
+    held = {d: (send(pos, d), send(mass, d))
+            for d in dict.fromkeys(devices)}
+    outs = []
+    for device, (start, stop) in zip(devices, row_blocks(pos.shape[0], len(devices))):
+        with on_device(device):
+            outs.append(pairwise_gravity(*held[device], g, eps, row0=start,
+                                         rows=stop - start))
+    return gather(outs, devices[0])
 
 
 def _aligned(x):

@@ -262,3 +262,33 @@ def sixdof_rollout_reference(pos, vel, inertia, dt: float, ticks: int, *,
     device."""
     u, par = pack_state(pos, vel, inertia, device=device, dtype=dtype)
     return unpack_state(_rollout_reference(u, par, dt, int(ticks)))
+
+
+def sixdof_rollout_sharded(pos, vel, inertia, dt: float, ticks: int, mesh,
+                           axis: str = "dp", *, dtype):
+    """``sixdof_rollout`` with the bodies cut over the devices of
+    ``mesh``'s ``axis`` (counterpart of the JAX package's
+    ``sixdof_rollout_sharded``).  Bodies are independent, so no collective
+    joins the shards: the (13, N) state is cut into contiguous blocks whose
+    sizes differ by at most one (N need not divide the axis; nothing is
+    padded), every block is sent to its device, then every shard's launch is
+    issued on its device's current stream, before anything waits.  The
+    results are gathered onto the axis's first device.  Returns (pos (N,7),
+    vel (N,6)) tensors there, bitwise equal to ``sixdof_rollout`` on one
+    device: each body's arithmetic does not depend on its neighbours.
+
+    On a CUDA device each non-empty shard launches the kernel (or raises);
+    on the CPU each shard runs the plain version."""
+    from ..parallel.mesh import gather, on_device, row_blocks, send
+
+    devices = mesh.axis_devices(axis)
+    u, par = pack_state(pos, vel, inertia, device=devices[0], dtype=dtype)
+    # every shard's slice is sent before any launch: a peer copy runs on the
+    # first device's stream, so one issued after its launch would wait for it
+    held = [(send(u[:, a:b], d).contiguous(), send(par[:, a:b], d).contiguous())
+            for d, (a, b) in zip(devices, row_blocks(u.shape[1], len(devices)))]
+    outs = []
+    for device, (u_k, par_k) in zip(devices, held):
+        with on_device(device):
+            outs.append(_rollout(u_k, par_k, dt, int(ticks)))
+    return unpack_state(gather(outs, devices[0], dim=1))

@@ -249,14 +249,17 @@ class RateGroup(System):
         self.system = as_system(sys_obj)
         self.full_rate_when = full_rate_when
 
-    def active(self, tick: int, cols: dict) -> bool:
+    def active(self, tick: int, *parts: dict) -> bool:
         """The gate for a sample-uniform host ``tick``: on schedule, or
-        escalated by ``full_rate_when`` (one device read, taken only off
-        schedule)."""
+        escalated by ``full_rate_when`` in any element of any of ``parts``
+        (the column dicts of a campaign's shards, each on its own device: one
+        device read in all, taken only off schedule)."""
         if (tick - 1) % self.every == 0:
             return True
-        return (self.full_rate_when is not None
-                and bool(torch.any(self.full_rate_when(cols))))
+        if self.full_rate_when is None:
+            return False
+        votes = [torch.any(self.full_rate_when(cols)) for cols in parts]
+        return bool(torch.stack([v.to(votes[0].device) for v in votes]).any())
 
     def _run(self, builder: SystemBuilder) -> dict:
         b = SystemBuilder(builder.world, dict(builder.cols))

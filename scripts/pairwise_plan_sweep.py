@@ -229,8 +229,8 @@ def main() -> int:
 
     def launch(variant, pos, mass, out, plan):
         fn = getattr(libs[variant], pw._LAUNCHERS[pos.dtype])
-        err = fn(pos.data_ptr(), mass.data_ptr(), out.data_ptr(), pos.shape[0], G, 0.0,
-                 *plan, torch.cuda.current_stream().cuda_stream)
+        err = fn(pos.data_ptr(), mass.data_ptr(), out.data_ptr(), pos.shape[0], 0,
+                 pos.shape[0], G, 0.0, *plan, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"launch failed: cudaError {err}, plan {plan}")
 

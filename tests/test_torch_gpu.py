@@ -512,3 +512,130 @@ def test_kernels_refuse_an_input_that_requires_grad_on_the_card(cuda):
         pw.pairwise_gravity(pos, mass)
     (g,) = torch.autograd.grad(pw.pairwise_gravity(pos, mass, use_kernel=False).sum(), pos)
     assert torch.isfinite(g).all()
+
+
+# ---------------------------------------------------------------------------
+# the split over cards (parallel/mesh.py): the sharded kernels and the
+# sharded falcon9 campaign on a mesh of repeated entries of one card, and
+# on every visible card.  Stated tolerances: K1 sharded bitwise; K2 sharded
+# against one call and against the plain version ≤ 1e-4 (f32) and ≤ 1e-12
+# (f64) in max |Δ| / max |ref|; a K2 row block that starts at a multiple of
+# 32 R rows bitwise the whole call's rows under the same plan; the campaign
+# sharded against unsharded bitwise.
+# ---------------------------------------------------------------------------
+
+
+def _card_mesh(devices):
+    from elodin_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=devices)
+
+
+def _every_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 or more CUDA cards")
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sixdof_rollout_sharded_on_one_card(cuda, dtype):
+    cols = batched_sixdof_init(4099, seed=4)
+    single = sk.sixdof_rollout(*cols, DT, 50, device=cuda, dtype=dtype)
+    before = sk.LAUNCHES
+    shard = sk.sixdof_rollout_sharded(*cols, DT, 50, _card_mesh(["cuda:0"] * 4), dtype=dtype)
+    assert sk.LAUNCHES == before + 4
+    for a, b in zip(shard, single):
+        assert a.device == b.device and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-12)])
+def test_pairwise_gravity_sharded_on_one_card(cuda, dtype, tol):
+    pos, mass = _nbody_inputs(4099, cuda, dtype)
+    one = pw.pairwise_gravity(pos, mass, g=G)
+    ref = pw.pairwise_gravity_reference(pos, mass, g=G)
+    before = pw.LAUNCHES
+    shard = pw.pairwise_gravity_sharded(pos, mass, _card_mesh(["cuda:0"] * 4), g=G)
+    assert pw.LAUNCHES == before + 4
+    assert shard.shape == one.shape and shard.device == one.device
+    assert rel_err(shard, one) <= tol and rel_err(shard, ref) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pairwise_row_block_is_the_whole_call_under_one_plan(cuda, dtype):
+    pos, mass = _nbody_inputs(4099, cuda, dtype)
+    plan = pw._launch_plan(4099, pw._sm_count(pos.device.index))
+    whole = pw._pairwise_gravity_cuda(pos, mass, G, 0.0, plan)
+    step = 32 * plan.r
+    for row0, rows in ((0, 4099), (0, 1), (step, 1000), (32 * step, 4099 - 32 * step),
+                       (4096, 3)):
+        block = pw._pairwise_gravity_cuda(pos, mass, G, 0.0, plan, row0, rows)
+        assert torch.equal(block, whole[row0:row0 + rows]), (row0, rows)
+    assert torch.equal(pw.pairwise_gravity(pos, mass, g=G), whole)
+    before = pw.LAUNCHES
+    for row0, rows in ((-1, 2), (4000, 100)):
+        with pytest.raises(ValueError, match="row block"):
+            pw._pairwise_gravity_cuda(pos, mass, G, 0.0, plan, row0, rows)
+    assert pw._pairwise_gravity_cuda(pos, mass, G, 0.0, plan, 7, 0).shape == (0, 3)
+    assert pw.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_falcon9_campaign_sharded_on_one_card(cuda):
+    """16 missions x 40 ticks over 4 shards of one card against the
+    unsharded campaign."""
+    plain, _ = f9.make_campaign(16, seed=1, device=cuda)
+    ref = plain.run(40, until=f9.until_down)
+    shard, _ = f9.make_campaign(16, seed=1, mesh=_card_mesh(["cuda:0"] * 4))
+    out = shard.run(40, until=f9.until_down)
+    assert out.ticks == ref.ticks == 40 and shard.gated_runs == plain.gated_runs
+    for k in ref.final:
+        np.testing.assert_array_equal(out.column(k), ref.column(k), err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-12)])
+def test_sharded_kernels_over_every_card(cuda, dtype, tol):
+    devices = _every_card()
+    mesh = _card_mesh(devices)
+    cols = batched_sixdof_init(4099, seed=5)
+    single = sk.sixdof_rollout(*cols, DT, 50, device=cuda, dtype=dtype)
+    shard = sk.sixdof_rollout_sharded(*cols, DT, 50, mesh, dtype=dtype)
+    for a, b in zip(shard, single):
+        assert torch.equal(a.to(b.device), b)
+    pos, mass = _nbody_inputs(4099, cuda, dtype)
+    ref = pw.pairwise_gravity_reference(pos, mass, g=G)
+    got = pw.pairwise_gravity_sharded(pos, mass, mesh, g=G)
+    assert rel_err(got.to(ref.device), ref) <= tol
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_on_the_cards(cuda):
+    from elodin_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    assert dryrun_multichip(4, devices=["cuda:0"] * 4)["falcon9_ticks"] == 4
+    if torch.cuda.device_count() >= 2:
+        dryrun_multichip(torch.cuda.device_count())
+
+
+@pytest.mark.gpu
+def test_gather_onto_the_host_waits_for_the_cards(cuda):
+    """Shards written behind a long kernel, read on the host at once
+    (``np.asarray`` of a placed column): each copy lands before the host
+    reads it, where a non-blocking copy to the host would hand back memory
+    still being written.  A first read fills torch's cache of page-locked
+    host buffers, as a long run has: a fresh buffer's allocation waits for
+    the card and would hide the fault."""
+    from elodin_tpu_torch.parallel import NamedSharding, put_global
+
+    placed = put_global(NamedSharding(_card_mesh(["cuda:0"] * 4), ("dp",)),
+                        torch.zeros(4 << 20, dtype=torch.float64))
+    for _ in range(2):
+        np.asarray(placed)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 30)  # a kernel that spins ~0.6 s, queued ahead of the writes
+    for k, s in enumerate(placed.shards):
+        s.fill_(k + 1.0)
+    np.testing.assert_array_equal(np.asarray(placed), np.repeat(np.arange(1.0, 5.0), 1 << 20))

@@ -71,6 +71,9 @@ PORT_MODULES = [
     "elodin_tpu_torch.adcs.magical",
     "elodin_tpu_torch.adcs.magkal",
     "elodin_tpu_torch.gravity.j2",
+    "elodin_tpu_torch.parallel",
+    "elodin_tpu_torch.parallel.mesh",
+    "elodin_tpu_torch.parallel.dryrun",
 ]
 
 
