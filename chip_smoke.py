@@ -245,13 +245,13 @@ against CPU at ``GRAD_TOL`` (1e-9, max |Δ| / max |ref|) unless named:
 
 32. orbit-retarget (``examples.orbit_retarget``, ``el.rollout`` through
     its 504 RK4 ticks): the gradient at 60 ticks on the card against the
-    central finite difference (eps 1e-6, rtol 1e-5, atol 1e-8); 2 Adam
-    steps from ``solve``'s start (``torch.optim.Adam(lr=3e-2)``) on the
-    card and on the CPU, each step's loss, gradient and iterate held card
-    against CPU, ms per value-and-grad and step (median of the 2), the
-    peak card memory above what was allocated before them; one step with
-    8 remat segments on each, held against plain (value rtol 1e-12,
-    gradient 1e-9; bitwise printed), its ms and peak memory; the device
+    central finite difference (eps 1e-6, rtol 1e-5, atol 1e-8); 1 Adam
+    step from ``solve``'s start (``torch.optim.Adam(lr=3e-2)``) on the
+    card and on the CPU, its loss, gradient and iterate held card
+    against CPU, ms per value-and-grad and step, the peak card memory
+    above what was allocated before it; one step with 8 remat segments
+    on the card, held against plain (value rtol 1e-12, gradient 1e-9;
+    bitwise printed), its ms and peak memory; the device
     trace of one value-and-grad cut to 16 ticks (device ops a tick,
     forward and backward, idle share).
 33. neural-hover (``examples.neural_hover``) at its full width and
@@ -293,15 +293,45 @@ each mesh are printed:
     the unsharded run, those tick and guidance counts, no kernel launched;
     ms/tick of each; the device trace of 3 sharded ticks, busy and idle
     share per card.  Then ``parallel.dryrun.dryrun_multichip(4)`` on the
-    mesh.
+    mesh (its ``ep = 2`` program in 4 processes, one a device; gloo where
+    a card repeats).
 
-36. a JSON line of the kernels (time, plain version's time and bound at
+The split across processes (``parallel/distributed.py``: ranks started
+once a run by ``distributed.launch``, each a new interpreter that imports
+this script's functions; a rank that fails fails the phase):
+
+36. two ranks on ``cuda:0`` over gloo (each collective staged through the
+    host): in each rank, the ``ep = 2`` six-dof step at 8192 bodies x 5
+    ticks, f64, bitwise equal to one process; with both launch counts set
+    to 0 just before and read just after, the kernels' rank forms
+    (``sixdof_rollout_sharded`` at 131072 bodies x 4000 ticks, f32 and
+    f64: one launch a call) and n-body at 16384 bodies, f32 and f64,
+    through ``World.build(device=mesh)`` and ``Exec.run(100)`` on K2's row
+    blocks from the all-gathered bodies (one launch a tick), ms/tick; K1's
+    block bitwise one card's call and, at 20 ticks, within 1e-4 / 1e-12 of
+    the plain version; K2's all-gather form against one card's call and
+    the plain version of the rank's rows (1e-4 / 1e-12); µs a tick and a
+    call, every rank started together; falcon9 at phase 13's 10000
+    samples over the ranks from phase 35's two starts (after a warm-up),
+    ms/tick, the escalation start twice over (10000 a rank) and a device
+    trace of 3 ticks a rank.  The parent holds n-body within 1e-4 / 1e-12
+    of one process's ``Exec.run`` (beside its ms/tick) and falcon9 bitwise,
+    with the same stop tick and guidance count, beside one process's
+    ms/tick and sample-ticks/s.  Then a world of one rank on nccl: n-body
+    through ``Exec`` on the mesh (a real NCCL communicator on the card),
+    bitwise equal to one process.  With 4 cards, four nccl ranks, one a
+    card: the kernels' rank forms timed and held as above.
+
+37. a JSON line of the kernels (time, plain version's time and bound at
     the main path's width, launches on the main path; no PyTorch call
     computes either function, so ``library_ms`` is null; under
     ``sharded``, phase 35's launches, times and bound of the sharded
     call, its max |Δ| against the plain version as ``max_abs_err`` is
-    above, and against one card as ``one_card_max_abs_err``), then the
-    last line ``{"ok": true, "device": {...}}``.
+    above, and against one card as ``one_card_max_abs_err``; under
+    ``processes``, phase 36's launches by rank and, per dtype, the slowest
+    rank's time, the bound of its rows' work, its errors and, with 4
+    cards, the four nccl ranks' time), then the last line
+    ``{"ok": true, "device": {...}}``.
 """
 
 import cProfile
@@ -421,7 +451,7 @@ CAMPAIGN_TIMEOUT_S = 900
 # phases 32-34: differentiable rollouts, the rest of adcs and gravity/j2
 ORBIT_V0 = (0.1, 1.0, 0.05)  # the start of phase 32's finite difference
 # Adam steps of phase 32 (3 until phase 35 took its time) and 33 (2 until then)
-ORBIT_FD_TICKS, ORBIT_FD_EPS, ORBIT_ADAM_STEPS = 60, 1e-6, 2
+ORBIT_FD_TICKS, ORBIT_FD_EPS, ORBIT_ADAM_STEPS = 60, 1e-6, 1
 ORBIT_TRACE_TICKS = 16  # one gradient traced, cut in depth (~3500 device ops a tick)
 GRAD_TOL = 1e-9  # card against CPU, values, gradients and iterates
 HOVER_STEPS, HOVER_TRACE_TICKS = 1, 24
@@ -431,6 +461,10 @@ MAGKAL_READINGS = 300
 SPLIT_SHARDS = 4  # shards of the mesh phase 35 always runs (repeated entries on fewer cards)
 SPLIT_F9_TICKS, SPLIT_F9_SEGMENT, SPLIT_F9_TOL, SPLIT_TRACE_TICKS = 10, 2, 1e-13, 3
 SPLIT_PLAIN_TICKS = 20  # ticks of K1's sharded call held to the plain version
+# phase 36: the split across processes
+PROC_RANKS = 2  # ranks that share cuda:0 over gloo
+PROC_SIXDOF_TICKS = 5  # ticks of the ep-cut six-dof step at the main width
+PROC_TIMEOUT_S = 600
 
 
 _START = time.perf_counter()
@@ -754,15 +788,16 @@ def _sixdof(el, interop):
     }
 
 
-def _nbody_exec(el, policy, n, use_kernel, telemetry_rate=None):
-    """An n-body Exec on the card: ``build_nbody(n, seed=2)`` under
-    ``policy``, built through ``World.build``."""
+def _nbody_exec(el, policy, n, use_kernel, telemetry_rate=None, device="cuda"):
+    """An n-body Exec on the card (or on ``device``, a mesh across
+    processes): ``build_nbody(n, seed=2)`` under ``policy``, built through
+    ``World.build``."""
     from elodin_tpu_torch.models import build_nbody, build_nbody_system
 
     el.set_float_policy(policy)
     world = build_nbody(n, seed=2)
     return world.build(build_nbody_system(NBODY_DT, use_kernel=use_kernel),
-                       device="cuda", simulation_rate=1.0 / NBODY_DT,
+                       device=device, simulation_rate=1.0 / NBODY_DT,
                        telemetry_rate=telemetry_rate)
 
 
@@ -1971,9 +2006,10 @@ def _peak_mib(peak):
 def _orbit_phase():
     """Phase 32: orbit-retarget's value and gradient through 504 ticks on
     the card (``el.rollout``, autograd): the finite difference at 60 ticks,
-    3 Adam steps (``solve``'s rule) against the CPU's, remat (8 segments)
-    against plain, ms per value-and-grad and the peak card memory of each,
-    card and CPU; a device trace of one gradient."""
+    ``ORBIT_ADAM_STEPS`` Adam steps (``solve``'s rule) against the CPU's,
+    ms per value-and-grad, card and CPU; on the card remat (8 segments)
+    against plain and the peak card memory of each (the CPU's remat is
+    held in the CPU tests); a device trace of one gradient."""
     from elodin_tpu_torch.examples.orbit_retarget import main as orbit
 
     ticks, segs = orbit.TICKS, orbit.REMAT_SEGMENTS
@@ -1997,31 +2033,34 @@ def _orbit_phase():
     if not np.all(np.abs(g - fd) <= 1e-8 + 1e-5 * np.abs(fd)):
         raise AssertionError("orbit-retarget: the card's gradient misses the finite difference")
 
-    # 3 Adam steps from solve's start, card and CPU; then remat
+    # Adam steps from solve's start, card and CPU; then remat on the card
     start = {"v0": torch.tensor([0.0, 1.0, 0.0], dtype=torch.float64)}
     figures = {}
     for device in ("cuda", "cpu"):
         loss = orbit.make_loss(ticks, None, device)
         rows, peak = _train_steps(lambda p: loss(p["v0"]), start, ORBIT_ADAM_STEPS,
                                   orbit.LEARNING_RATE, device)
-        remat = orbit.make_loss(ticks, segs, device)
-        rrows, rpeak = _train_steps(lambda p: remat(p["v0"]), start, 1, orbit.LEARNING_RATE,
-                                    device)
-        figures[device] = (rows, peak, rrows, rpeak)
-        bitwise = rrows[0][0] == rows[0][0] and torch.equal(rrows[0][1]["v0"], rows[0][1]["v0"])
-        vrel = abs(rrows[0][0] - rows[0][0]) / abs(rows[0][0])
-        grel = ((rrows[0][1]["v0"] - rows[0][1]["v0"]).abs().max()
-                / rows[0][1]["v0"].abs().max()).item()
-        print(f"orbit-retarget on {device}, {ticks} ticks, f64: value-and-grad and an Adam step, "
-              f"plain {_spread([r[3] for r in rows])} ms over {ORBIT_ADAM_STEPS} steps (runs "
-              + ", ".join(f"{r[3]:.6g}" for r in rows) + f"); remat ({segs} segments) "
-              f"{rrows[0][3]:.6g} ms; remat against plain: value {vrel:.3e} (tol 1e-12), "
-              f"gradient {grel:.3e} (tol 1e-9), bitwise {bitwise}"
-              + (f"; peak card memory above the columns: plain {_peak_mib(peak)}, remat "
-                 f"{_peak_mib(rpeak)}" if device == "cuda" else ""))
-        if not (vrel <= 1e-12 and grel <= 1e-9):
-            raise AssertionError(f"orbit-retarget on {device}: remat differs from plain")
-    card, cpu = figures["cuda"][0], figures["cpu"][0]
+        figures[device] = rows
+        line = (f"orbit-retarget on {device}, {ticks} ticks, f64: value-and-grad and an Adam "
+                f"step, plain {_spread([r[3] for r in rows])} ms over {ORBIT_ADAM_STEPS} steps "
+                "(runs " + ", ".join(f"{r[3]:.6g}" for r in rows) + ")")
+        if device == "cuda":
+            remat = orbit.make_loss(ticks, segs, device)
+            rrows, rpeak = _train_steps(lambda p: remat(p["v0"]), start, 1,
+                                        orbit.LEARNING_RATE, device)
+            bitwise = rrows[0][0] == rows[0][0] and torch.equal(rrows[0][1]["v0"],
+                                                                rows[0][1]["v0"])
+            vrel = abs(rrows[0][0] - rows[0][0]) / abs(rows[0][0])
+            grel = ((rrows[0][1]["v0"] - rows[0][1]["v0"]).abs().max()
+                    / rows[0][1]["v0"].abs().max()).item()
+            line += (f"; remat ({segs} segments) {rrows[0][3]:.6g} ms; remat against plain: "
+                     f"value {vrel:.3e} (tol 1e-12), gradient {grel:.3e} (tol 1e-9), bitwise "
+                     f"{bitwise}; peak card memory above the columns: plain {_peak_mib(peak)}, "
+                     f"remat {_peak_mib(rpeak)}")
+            if not (vrel <= 1e-12 and grel <= 1e-9):
+                raise AssertionError("orbit-retarget on the card: remat differs from plain")
+        print(line)
+    card, cpu = figures["cuda"], figures["cpu"]
     _hold_steps(f"orbit-retarget, {ticks} ticks, {ORBIT_ADAM_STEPS} Adam steps", card, cpu)
     print(f"orbit-retarget: first loss {card[0][0]!r} (CPU {cpu[0][0]!r}), gradient "
           f"{card[0][1]['v0'].tolist()}, v0 after {ORBIT_ADAM_STEPS} steps "
@@ -2434,6 +2473,383 @@ def _split_phase(kernels):
         _clock(label)
 
 
+def _proc_rank(out_dir, sections):
+    """Phase 36 in one rank of a job that ``distributed.launch`` started
+    (``sections`` of "sixdof", "kernels", "nbody", "falcon9"): the mesh
+    spans every rank's card, the bodies over ``ep`` (one rank a device) and
+    falcon9's samples over ``dp``.  Each section raises on a failed check;
+    returns the rank's figures, and writes the columns the parent holds
+    against one process to ``out_dir``."""
+    import torch.distributed as dist
+
+    import elodin_tpu_torch as el
+    from elodin_tpu_torch.interop import columns_from_numpy
+    from elodin_tpu_torch.models import build_batched_sixdof
+    from elodin_tpu_torch.models.sixdof_batch import batched_sixdof_init
+    from elodin_tpu_torch.ops import pairwise as pw
+    from elodin_tpu_torch.ops import sixdof_kernel as sk
+    from elodin_tpu_torch.parallel import distributed, make_mesh, sharded_step
+    from elodin_tpu_torch.system import build_step
+
+    job = distributed.process()
+    rank, ranks = job.rank, job.world_size
+    mesh = make_mesh(ep=ranks)
+    comm = mesh.line_comm("ep", mesh.local_positions()[0])
+    report = {"rank": rank, "device": str(job.devices[0]), "transport": comm.transport}
+    label = f"phase 36, rank {rank} of {ranks} ({comm.transport})"
+    dtypes = (torch.float32, torch.float64)
+
+    if "sixdof" in sections:
+        el.set_float_policy("f64")
+        world, system = build_batched_sixdof(MAIN_BODIES)
+        meta, cols = world.snapshot()
+        step = build_step(meta, system)
+
+        def ticks(state):
+            for _ in range(PROC_SIXDOF_TICKS):
+                state = step(state)
+            return state
+
+        fn, placed = sharded_step(ticks, mesh, columns_from_numpy(cols, meta, "cpu"))
+        out = fn(placed)
+        one = ticks(columns_from_numpy(cols, meta, job.devices[0]))
+        for name, col in out.items():
+            for shard in col.addressable_shards:
+                if not torch.equal(shard.data, one[name][shard.index]):
+                    raise AssertionError(f"{label}: six-dof {name} {shard.index} != one process")
+        rows = out["world_pos"].addressable_shards[0].index[0]
+        print(f"{label}: six-dof step, {MAIN_BODIES} bodies over ep={ranks}, "
+              f"{PROC_SIXDOF_TICKS} ticks: rows [{rows.start}, {rows.stop}) bitwise equal to "
+              "one process")
+
+    if "kernels" in sections or "nbody" in sections:
+        sk.LAUNCHES = pw.LAUNCHES = 0
+        k1, execs = {}, {}
+        if "kernels" in sections:
+            init = batched_sixdof_init(BENCH_BODIES, seed=0)
+            dev = {d: [torch.as_tensor(c, device=job.devices[0], dtype=d) for c in init]
+                   for d in dtypes}
+            k1 = {d: sk.sixdof_rollout_sharded(*dev[d], DT, BENCH_TICKS, mesh, axis="ep",
+                                               dtype=d) for d in dtypes}
+        if "nbody" in sections:
+            for d, policy in zip(dtypes, ("f32", "f64")):
+                execs[d] = _nbody_exec(el, policy, NBODY_BODIES, True,
+                                       telemetry_rate=1.0 / (NBODY_DT * NBODY_TICKS),
+                                       device=mesh)
+                dist.barrier()
+                wall = _run_timed(execs[d], NBODY_TICKS)
+                report[f"nbody_{policy}_ms_per_tick"] = wall / NBODY_TICKS * 1e3
+        torch.cuda.synchronize()
+        report["launches"] = {"sixdof_rk4": sk.LAUNCHES, "pairwise_gravity": pw.LAUNCHES}
+        expect = {"sixdof_rk4": 2 * ("kernels" in sections),
+                  "pairwise_gravity": 2 * NBODY_TICKS * ("nbody" in sections)}
+        print(f"{label}: launches of the rank's main path {report['launches']} "
+              f"(expected {expect})")
+        if report["launches"] != expect:
+            raise AssertionError(f"{label}: launches {report['launches']} != {expect}")
+        for d, ex in execs.items():
+            policy = "f32" if d == torch.float32 else "f64"
+            el.set_float_policy(policy)
+            whole = {k: ex.column_array(k) for k in SIXDOF_STATE}
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"nbody_{str(d)[6:]}.npz"), **whole)
+            print(f"{label}: n-body {NBODY_BODIES} bodies, {d}, Exec.run({NBODY_TICKS}) on "
+                  f"K2's row blocks: {report[f'nbody_{policy}_ms_per_tick']:.4g} ms/tick, "
+                  f"finite {bool(np.isfinite(whole['world_pos']).all())}")
+        for d in k1:
+            kr = _proc_kernels(label, mesh, k1[d], dev[d], d)
+            report.setdefault("kernels", {}).update(kr)
+
+    if "falcon9" in sections:
+        report["falcon9"] = _proc_falcon9(label, out_dir)
+    return report
+
+
+def _proc_kernels(label, mesh, k1_out, cols, dtype):
+    """One rank's holds and times of the kernels' rank forms in ``dtype``:
+    K1's block bitwise against one card's call on it and, at
+    ``SPLIT_PLAIN_TICKS``, against the plain version; K2's all-gather form
+    against one card's whole call and the plain version of the rank's rows;
+    µs a tick and a call (CUDA events, every rank started together)."""
+    import torch.distributed as dist
+
+    from elodin_tpu_torch.models.nbody import G
+    from elodin_tpu_torch.ops import pairwise as pw
+    from elodin_tpu_torch.ops import sixdof_kernel as sk
+
+    tol = F32_TOL if dtype == torch.float32 else F64_TOL
+    name = str(dtype)[6:]
+    a, b = k1_out[0].addressable_shards[0].index[0].indices(BENCH_BODIES)[:2]
+    block = [c[a:b] for c in cols]
+    args = dict(device=cols[0].device, dtype=dtype)
+    one = sk.sixdof_rollout(*block, DT, BENCH_TICKS, **args)
+    if not all(torch.equal(s.addressable_shards[0].data, o) for s, o in zip(k1_out, one)):
+        raise AssertionError(f"{label}: K1 rank form != one card's call on its block ({dtype})")
+    short = sk.sixdof_rollout_sharded(*cols, DT, SPLIT_PLAIN_TICKS, mesh, axis="ep", dtype=dtype)
+    plain = sk.sixdof_rollout_reference(*block, DT, SPLIT_PLAIN_TICKS, **args)
+    k1_err = _compare(f"{label}: K1 rank form vs plain, bodies [{a}, {b}) x "
+                      f"{SPLIT_PLAIN_TICKS} ticks, {dtype}",
+                      _state([s.addressable_shards[0].data for s in short]), _state(plain),
+                      SIXDOF_STATE, tol)
+    dist.barrier()
+    k1_ms = _time_ms(lambda: sk.sixdof_rollout_sharded(*cols, DT, BENCH_TICKS, mesh, axis="ep",
+                                                       dtype=dtype))[0] / BENCH_TICKS
+
+    snap = _nbody_snapshot(NBODY_BODIES)
+    pos = torch.as_tensor(snap["world_pos"][:, 4:], **args).contiguous()
+    mass = torch.as_tensor(snap["inertia"][:, 6], **args).contiguous()
+    got = pw.pairwise_gravity_sharded(pos, mass, mesh, axis="ep", g=G)
+    shard = got.addressable_shards[0]
+    r0, r1 = shard.index[0].indices(NBODY_BODIES)[:2]
+    errs = {}
+    for what, ref in (("one card", pw.pairwise_gravity(pos, mass, g=G)[r0:r1]),
+                      ("plain", pw.pairwise_gravity_reference(pos, mass, g=G, row0=r0,
+                                                              rows=r1 - r0))):
+        d = (shard.data.double() - ref.double()).abs().max().item()
+        errs[what] = (d / ref.double().abs().max().item(), d)
+        if not (torch.isfinite(shard.data).all() and errs[what][0] <= tol):
+            raise AssertionError(f"{label}: K2 all-gather form vs {what} {dtype}: "
+                                 f"{errs[what][0]:.3e}")
+    dist.barrier()
+    k2_ms = _time_ms(lambda: pw.pairwise_gravity_sharded(pos, mass, mesh, axis="ep", g=G),
+                     reps=5, calls=20)[0]
+    # the call's two parts alone: the one all-gather of the bodies, the row block's launch
+    _, sizes, comm = mesh.rank_blocks("ep", NBODY_BODIES)
+    dist.barrier()
+    gather_ms = _time_ms(lambda: pw.gather_bodies(comm, pos[r0:r1], mass[r0:r1], sizes),
+                         reps=5, calls=20)[0]
+    block_ms = _time_ms(lambda: pw.pairwise_gravity(pos, mass, g=G, row0=r0, rows=r1 - r0),
+                        reps=5, calls=20)[0]
+    print(f"{label}: K1 rank form {dtype}, bodies [{a}, {b}): bitwise equal to one card's "
+          f"call on them, {k1_ms * 1e3:.4g} us/tick; K2 all-gather form {dtype}, rows "
+          f"[{r0}, {r1}): vs " + ", ".join(f"{w} max|Δ|/max|ref| {e[0]:.3e}"
+                                          for w, e in errs.items())
+          + f" (tol {tol:g}), {k2_ms * 1e3:.4g} us/call; alone, the all-gather of the "
+          f"bodies ({comm.transport}) {gather_ms * 1e3:.4g} us, the row block's launch "
+          f"{block_ms * 1e3:.4g} us")
+    return {f"sixdof_rk4_{name}": {"ms": k1_ms, "rows": b - a, "max_abs_err": k1_err[1],
+                                    "plain_rel_err": k1_err[0], "one_card_max_abs_err": 0.0},
+            f"pairwise_gravity_{name}": {"ms": k2_ms, "rows": r1 - r0, "gather_ms": gather_ms,
+                                          "block_ms": block_ms,
+                                          "max_abs_err": errs["plain"][1],
+                                          "plain_rel_err": errs["plain"][0],
+                                          "one_card_max_abs_err": errs["one card"][1]}}
+
+
+def _proc_falcon9(label, out_dir):
+    """One rank's falcon9 runs from the two starts the parent wrote to
+    ``out_dir`` (``_f9_decision_cols``), its samples over ``dp``; the
+    rank's final columns go back to ``out_dir``.  Returns each start's
+    ticks, guidance ticks, samples, ms/tick and, for the escalation start,
+    the device trace of ``SPLIT_TRACE_TICKS`` ticks."""
+    import torch.distributed as dist
+
+    from elodin_tpu_torch import _config
+    from elodin_tpu_torch.examples.falcon9 import batched as f9
+    from elodin_tpu_torch.parallel import distributed, make_mesh
+
+    _config.set_float_policy("f64")
+    rank = distributed.process().rank
+    mesh = make_mesh()
+    os.environ["ELODIN_MC_SEGMENT_TICKS"] = str(SPLIT_F9_SEGMENT)
+    _f9_start_campaign(out_dir, "escalation", mesh=mesh).run(SPLIT_F9_SEGMENT)  # warm-up
+    out = {}
+    for start in ("escalation", "touchdown"):
+        campaign = _f9_start_campaign(out_dir, start, mesh=mesh)
+        dist.barrier()
+        result = campaign.run(SPLIT_F9_TICKS, until=f9.until_down)
+        np.savez(os.path.join(out_dir, f"f9_{start}_rank{rank}.npz"),
+                 **{k: result.column(k) for k in result.final})
+        out[start] = {"ticks": result.ticks, "gated_runs": campaign.gated_runs,
+                      "samples": [result.samples.start, result.samples.stop],
+                      "ms_per_tick": result.wall_seconds / result.ticks * 1e3}
+        print(f"{label}: falcon9 from the {start} start, samples [{result.samples.start}, "
+              f"{result.samples.stop}): {result.ticks} ticks, guidance on "
+              f"{campaign.gated_runs}, {out[start]['ms_per_tick']:.4g} ms/tick")
+        if start == "escalation":
+            # the same start twice over: F9_SAMPLES a rank, as many as one process holds
+            twice = _f9_start_campaign(out_dir, start, copies=2, mesh=mesh)
+            dist.barrier()
+            result = twice.run(SPLIT_F9_TICKS, until=f9.until_down)
+            out["escalation_twice_ms_per_tick"] = result.wall_seconds / result.ticks * 1e3
+            print(f"{label}: falcon9 escalation start twice over, {2 * len(result.samples)} "
+                  f"samples, {len(result.samples)} in this rank: "
+                  f"{out['escalation_twice_ms_per_tick']:.4g} ms/tick")
+            dist.barrier()
+            ops, busy, wall = _device_trace(lambda: campaign.run(SPLIT_TRACE_TICKS))
+            out[start].update(trace_ops_per_tick=ops / SPLIT_TRACE_TICKS,
+                              trace_busy_ms_per_tick=busy / SPLIT_TRACE_TICKS,
+                              trace_wall_ms_per_tick=wall / SPLIT_TRACE_TICKS)
+            print(f"{label}: device trace, falcon9 run({SPLIT_TRACE_TICKS}): "
+                  f"{ops / SPLIT_TRACE_TICKS:.1f} device ops/tick, busy "
+                  f"{busy / SPLIT_TRACE_TICKS:.4g} of {wall / SPLIT_TRACE_TICKS:.4g} ms/tick, "
+                  f"this rank's idle share {1 - busy / wall:.2%}")
+    return out
+
+
+def _f9_start_campaign(out_dir, start, copies=1, **placement):
+    """falcon9 from the start ``_process_phase`` wrote to ``out_dir``
+    (``copies`` times over along the samples), on ``placement`` (a mesh or
+    a device)."""
+    from elodin_tpu_torch.examples.falcon9 import sim
+    from elodin_tpu_torch.monte_carlo import BatchedCampaign
+
+    with np.load(os.path.join(out_dir, f"start_{start}.npz")) as data:
+        cols = {k: np.concatenate([data[k]] * copies) for k in data.files}
+    world, system = sim.build(None, sensors=False)
+    return BatchedCampaign.from_columns(world, system, cols, simulation_rate=sim.SIM_RATE_HZ,
+                                        **placement)
+
+
+def _process_phase(el, kernels):
+    """Phase 36: the split across processes.  Two ranks on ``cuda:0`` over
+    gloo (staged through the host): the ep-cut six-dof step, the kernels'
+    rank forms, n-body through ``Exec`` on K2's row blocks and falcon9 over
+    the ranks, each held against one process; then a world of one rank on
+    nccl (n-body, so that a real NCCL communicator forms on the card);
+    then, with four cards, four ranks on nccl (the kernels' rank forms).
+    Adds the ``processes`` entries to the kernels line."""
+    import tempfile
+
+    from elodin_tpu_torch.parallel.distributed import launch
+
+    out_dir = tempfile.mkdtemp(prefix="elodin_phase36_")
+    starts = _f9_decision_cols(F9_SAMPLES, PROC_RANKS)
+    for start, cols in starts.items():
+        np.savez(os.path.join(out_dir, f"start_{start}.npz"), **cols)
+    t0 = time.perf_counter()
+    ranks = launch("chip_smoke:_proc_rank", [["cuda:0"]] * PROC_RANKS, backend="gloo",
+                   kwargs={"out_dir": out_dir,
+                           "sections": ["sixdof", "kernels", "nbody", "falcon9"]},
+                   timeout=PROC_TIMEOUT_S)
+    print(f"phase 36: {PROC_RANKS} ranks on cuda:0 (gloo) ran in "
+          f"{time.perf_counter() - t0:.2f} s, start-up included")
+    _proc_hold(el, ranks, out_dir)
+
+    t0 = time.perf_counter()
+    nccl = launch("chip_smoke:_proc_rank", [["cuda:0"]], kwargs={
+        "out_dir": out_dir, "sections": ["nbody"]}, timeout=PROC_TIMEOUT_S)[0]
+    print(f"phase 36: a world of one rank on nccl ({nccl['transport']}) ran in "
+          f"{time.perf_counter() - t0:.2f} s; n-body f32 "
+          f"{nccl['nbody_f32_ms_per_tick']:.4g} ms/tick, f64 "
+          f"{nccl['nbody_f64_ms_per_tick']:.4g}")
+    if nccl["transport"] != "nccl on cuda":
+        raise AssertionError(f"phase 36: the world of one rank ran over {nccl['transport']}")
+    _proc_hold_nbody(el, out_dir, "nccl, one rank", tol={torch.float32: 0.0,
+                                                          torch.float64: 0.0})
+    four = None
+    if torch.cuda.device_count() >= 4:
+        four = launch("chip_smoke:_proc_rank", [[f"cuda:{i}"] for i in range(4)], kwargs={
+            "out_dir": out_dir, "sections": ["kernels"]}, timeout=PROC_TIMEOUT_S)
+    for entry in kernels:
+        entry["processes"] = _proc_entry(entry["name"], ranks, four)
+
+
+def _proc_hold_nbody(el, out_dir, label, tol):
+    """The n-body runs a rank wrote against one process's ``Exec.run`` on
+    the card, per channel group (``tol`` 0: bitwise)."""
+    for dtype, policy in ((torch.float32, "f32"), (torch.float64, "f64")):
+        ex = _nbody_exec(el, policy, NBODY_BODIES, True,
+                         telemetry_rate=1.0 / (NBODY_DT * NBODY_TICKS))
+        wall = _run_timed(ex, NBODY_TICKS)
+        print(f"phase 36, {label}: one process's n-body {dtype}, Exec.run({NBODY_TICKS}): "
+              f"{wall / NBODY_TICKS * 1e3:.4g} ms/tick")
+        with np.load(os.path.join(out_dir, f"nbody_{str(dtype)[6:]}.npz")) as data:
+            ours = {k: torch.as_tensor(data[k]) for k in SIXDOF_STATE}
+        ref = {k: torch.as_tensor(ex.column_array(k)) for k in SIXDOF_STATE}
+        if tol[dtype] == 0.0:
+            if not all(torch.equal(ours[k], ref[k]) for k in SIXDOF_STATE):
+                raise AssertionError(f"phase 36, {label}: n-body {dtype} != one process")
+            print(f"phase 36, {label}: n-body {dtype} bitwise equal to one process")
+        else:
+            _compare(f"phase 36, {label}: n-body {NBODY_BODIES} bodies {dtype} x "
+                     f"{NBODY_TICKS} ticks vs one process", ours, ref, SIXDOF_STATE, tol[dtype])
+
+
+def _proc_hold(el, ranks, out_dir):
+    """The parent's holds of the two-rank run: n-body within 1e-4 / 1e-12
+    of one process; falcon9 bitwise, with the same stop tick and guidance
+    count, beside one process's ms/tick."""
+    from elodin_tpu_torch.examples.falcon9 import batched as f9
+
+    if {r["transport"] for r in ranks} != {"gloo, staged through the host"}:
+        raise AssertionError(f"phase 36: transports {[r['transport'] for r in ranks]}")
+    _proc_hold_nbody(el, out_dir, f"{PROC_RANKS} ranks",
+                     tol={torch.float32: F32_TOL, torch.float64: F64_TOL})
+    el.set_float_policy("f64")
+    decided = {"escalation": (SPLIT_F9_TICKS, SPLIT_F9_TICKS), "touchdown": (6, 6)}
+    prev = os.environ.get("ELODIN_MC_SEGMENT_TICKS")
+    os.environ["ELODIN_MC_SEGMENT_TICKS"] = str(SPLIT_F9_SEGMENT)
+    try:
+        _f9_start_campaign(out_dir, "escalation", device="cuda").run(SPLIT_F9_SEGMENT)  # warm-up
+        for start in decided:
+            campaign = _f9_start_campaign(out_dir, start, device="cuda")
+            ref = _no_launches(f"phase 36: falcon9 {start}, one process",
+                               lambda: campaign.run(SPLIT_F9_TICKS, until=f9.until_down))
+            one_ms = ref.wall_seconds / ref.ticks * 1e3
+            seen = {(r["falcon9"][start]["ticks"], r["falcon9"][start]["gated_runs"])
+                    for r in ranks} | {(ref.ticks, campaign.gated_runs)}
+            if seen != {decided[start]}:
+                raise AssertionError(f"phase 36: falcon9 {start}: (ticks, guidance ticks) "
+                                     f"{seen}, expected {decided[start]}")
+            for r in ranks:
+                a, b = r["falcon9"][start]["samples"]
+                with np.load(os.path.join(out_dir, f"f9_{start}_rank{r['rank']}.npz")) as data:
+                    for k in ref.final:
+                        if not np.array_equal(data[k], ref.column(k)[a:b]):
+                            raise AssertionError(f"phase 36: falcon9 {start}, rank "
+                                                 f"{r['rank']}: {k} != one process")
+            slowest = max(r["falcon9"][start]["ms_per_tick"] for r in ranks)
+            print(f"phase 36: falcon9 {F9_SAMPLES} samples from the {start} start over "
+                  f"{PROC_RANKS} ranks: bitwise equal to one process, the same {ref.ticks} "
+                  f"ticks and {campaign.gated_runs} guidance ticks; ms/tick by rank "
+                  f"{[round(r['falcon9'][start]['ms_per_tick'], 3) for r in ranks]}, one "
+                  f"process {one_ms:.4g}; sample-ticks/s {F9_SAMPLES / slowest * 1e3:.4g} "
+                  f"over the ranks, {F9_SAMPLES / one_ms * 1e3:.4g} in one process")
+            if start == "escalation":
+                twice = max(r["falcon9"]["escalation_twice_ms_per_tick"] for r in ranks)
+                print(f"phase 36: falcon9 {PROC_RANKS * F9_SAMPLES} samples ({F9_SAMPLES} a "
+                      f"rank, the escalation start twice over): {twice:.4g} ms/tick, "
+                      f"sample-ticks/s {PROC_RANKS * F9_SAMPLES / twice * 1e3:.4g}, "
+                      f"{PROC_RANKS * one_ms / twice:.3g}x one process's")
+    finally:
+        if prev is None:
+            del os.environ["ELODIN_MC_SEGMENT_TICKS"]
+        else:
+            os.environ["ELODIN_MC_SEGMENT_TICKS"] = prev
+
+
+def _proc_entry(name, ranks, four):
+    """The kernels line's ``processes`` entry of kernel ``name``: the
+    two-rank run's launches (by rank) and, per dtype, the slowest rank's
+    time, against the bound of its rows' work, and the largest errors; the
+    four-card run's times beside them when there was one."""
+    entry = {"ranks": len(ranks), "backend": ranks[0]["transport"],
+             "launches": [r["launches"][name] for r in ranks]}
+    for dtype in (torch.float32, torch.float64):
+        key = f"{name}_{str(dtype)[6:]}"
+        figures = [r["kernels"][key] for r in ranks]
+        rows = max(f["rows"] for f in figures)
+        if name == "sixdof_rk4":
+            bound = _bound(rows * SIXDOF_TICK_OPS[dtype], rows * SIXDOF_TICK_SFU,
+                           30 * rows * dtype.itemsize / BENCH_TICKS, dtype)
+        else:
+            bound = _pairwise_bound(NBODY_BODIES, dtype, rows=rows)
+        entry[str(dtype)[6:]] = {
+            "ms": max(f["ms"] for f in figures), "bound_ms": bound[0],
+            "bound_by": _bound_by(bound[1]),
+            "max_abs_err": max(f["max_abs_err"] for f in figures),
+            "one_card_max_abs_err": max(f["one_card_max_abs_err"] for f in figures),
+            "four_cards_ms": None if four is None else max(
+                r["kernels"][key]["ms"] for r in four)}
+        if name == "pairwise_gravity":  # the call's parts alone, the slowest rank's
+            for part in ("gather_ms", "block_ms"):
+                entry[str(dtype)[6:]][part] = max(f[part] for f in figures)
+                entry[str(dtype)[6:]][f"four_cards_{part}"] = None if four is None else max(
+                    r["kernels"][key][part] for r in four)
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2497,12 +2913,14 @@ def main() -> int:
     _clock("phase 34")
     _split_phase(kernels)
     _clock("phase 35")
+    _process_phase(el, kernels)
+    _clock("phase 36")
 
     if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
            for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
 
-    # 36. results
+    # 37. results
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -169,7 +169,7 @@ class World(WorldBuilder):
         ``db_path`` needs the telemetry database, which is not ported."""
         if db_path is not None:
             raise NotImplementedError("World.build(db_path=...): the telemetry "
-                                      "database is not ported")
+                                      "database is not ported (ROADMAP.md §1 item 6)")
         self.set_sim_time_step(1.0 / simulation_rate)
         meta, cols = self.snapshot()
         return Exec(

@@ -105,7 +105,7 @@ class Mekf:
         y = torch.diag(torch.tensor([-1.0, -1.0, -1.0, 1.0, 1.0, 1.0], dtype=ft, device=device))
         q = calculate_covariance(_as_f(sigma_g, device), _as_f(sigma_b, device), dt)
         return Mekf(
-            q_hat=quat_identity(device),
+            q_hat=quat_identity(device=device),
             b_hat=torch.zeros(3, dtype=ft, device=device),
             p=torch.eye(6, dtype=ft, device=device),
             omega=torch.zeros(3, dtype=ft, device=device),
@@ -154,7 +154,7 @@ class Mekf:
             & torch.isfinite(self.omega).all(dim=-1)
         )
         return Mekf(
-            torch.where(bad[..., None], quat_identity(self.q_hat.device).to(self.q_hat.dtype),
+            torch.where(bad[..., None], quat_identity(device=self.q_hat.device).to(self.q_hat.dtype),
                         self.q_hat),
             torch.where(bad[..., None], 0.0, self.b_hat),
             torch.where(bad[..., None, None],

@@ -14,6 +14,13 @@ host copy of the sent values per exchange.  The history is the checkpoint:
 it and cuts the history after it; ``save_checkpoint`` / ``load_checkpoint``
 write and read the live state as an npz file.  Not ported yet:
 ``restore_from_db`` (it needs the telemetry database).
+
+``device`` may be a mesh across processes (``parallel.make_mesh()`` after
+``init_multihost``, one device a process): the columns are placed as
+``jax.device_put`` places them on a sharding, each rank keeps the rows of
+its ``ep`` block, and every tick runs under its row window.  The history,
+``column_array`` and ``read_component`` see whole columns, gathered from
+every rank (so every rank calls them).
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ import torch
 from . import _config
 from .dataframe import DataFrame
 from .interop import columns_from_numpy, columns_to_numpy
+from .parallel import distributed
+from .parallel.mesh import Mesh, row_windows, shard_cols
 from .system import build_step
 from .world import WorldMeta
 
@@ -327,7 +336,9 @@ class Exec:
     """World executor on one device.
 
     ``cols`` are numpy columns (``WorldBuilder.snapshot()``); they are
-    checked against ``meta`` and moved to ``device`` once."""
+    checked against ``meta`` and moved to ``device`` once.  The parameters
+    before ``device`` are the JAX package's, in its order; ``db_path``
+    needs the telemetry database, which is not ported."""
 
     # True copies each commit to the history on the step loop, without the
     # pump: the reference that the pump's history is held to in the tests
@@ -342,14 +353,21 @@ class Exec:
         max_ticks: int | None = None,
         telemetry_rate: float | None = None,
         record_history: bool = True,
+        db_path: str | None = None,
         device: str | torch.device = "cuda",
     ):
+        if db_path is not None:
+            raise NotImplementedError(
+                "Exec(db_path=...): the telemetry database is not ported "
+                "(ROADMAP.md §1 item 6)")
         self.meta = meta
         self.sim_time_step = sim_time_step
         self.max_ticks = max_ticks
         self.profiler = Profiler(sim_time_step)
         self.record_history = record_history
-        self.device = torch.device(device)
+        self.mesh = device if isinstance(device, Mesh) else None
+        self._window: distributed.RowWindow | None = None  # this rank's rows on a mesh
+        self.device = self._mesh_device() if self.mesh is not None else torch.device(device)
         # ticks between telemetry commits (>=1)
         if telemetry_rate is not None and telemetry_rate > 0:
             self.ticks_per_telemetry = max(
@@ -359,16 +377,55 @@ class Exec:
             self.ticks_per_telemetry = 1
 
         self._step = build_step(meta, system)
+        if self.mesh is not None:
+            self._step = self._windowed(self._step)
 
         t0 = time.perf_counter()
-        self.cols = columns_from_numpy(cols, meta, self.device)
+        self.cols = self._place(cols)
         self.profiler.build_s = time.perf_counter() - t0
 
         self._history = History(meta)
         self._tick = 0
         if self.record_history:
-            self._history.append_state(0.0, columns_to_numpy(self.cols, meta))
+            self._history.append_state(0.0, columns_to_numpy(self._whole(self.cols), meta))
         self._pump: _TelemetryPump | None = None
+
+    # -- placement on a mesh ---------------------------------------------------
+
+    def _mesh_device(self) -> torch.device:
+        """This rank's device of the mesh, which must span processes with
+        one device a process."""
+        positions = self.mesh.local_positions()
+        if not self.mesh.distributed or len(positions) != 1:
+            raise ValueError("Exec on a mesh needs a mesh across processes with one device a "
+                             "process (init_multihost, then make_mesh())")
+        return self.mesh.devices[positions[0]]
+
+    def _windowed(self, step):
+        def run(cols):
+            with distributed.row_window(self._window):
+                return step(cols)
+
+        return run
+
+    def _place(self, cols: dict) -> dict:
+        """Whole numpy columns as this executor's device columns.  On a mesh
+        each column is placed by ``shard_cols`` and this rank keeps its
+        shard; the row window is read from the placement."""
+        if self.mesh is None:
+            return columns_from_numpy(cols, self.meta, self.device)
+        placed = shard_cols(self.mesh, columns_from_numpy(cols, self.meta, "cpu"))
+        self._window = row_windows(self.mesh, placed, 0)[0]
+        return {k: v.addressable_shards[0].data for k, v in placed.items()}
+
+    def _whole(self, cols: dict) -> dict:
+        """``cols`` with every cut column gathered from every rank (a
+        collective: every rank calls it)."""
+        w = self._window
+        if w is None:
+            return cols
+        return {k: w.comm.all_gather_rows(v, w.sizes(k)) if k in w.cut else v
+                for k, v in cols.items()}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -417,6 +474,7 @@ class Exec:
         go to the telemetry pump, which copies them to the host off the
         step loop.  The step never writes a column in place, so the
         tensors hold this state until the copy is made."""
+        cols = self._whole(cols)
         if self._sync_history:
             t0 = time.perf_counter()
             self._history.append_state(t, columns_to_numpy(cols, self.meta))
@@ -444,6 +502,8 @@ class Exec:
         ``hold_ticks`` ticks and returns the sent values (see
         ``_LockstepSession``).  ``record_history`` is read once, when the
         session is built (``session.emit``)."""
+        if self.mesh is not None:
+            raise NotImplementedError("a lockstep session of an Exec on a mesh")
         return _LockstepSession(self, send, recv, hold_ticks)
 
     # -- host-side control -------------------------------------------------
@@ -453,6 +513,12 @@ class Exec:
         next tick reads it.  The column is rebound, never written in
         place."""
         comp, row = self._history.resolve(qualified)
+        w = self._window
+        if w is not None and comp in w.cut:
+            r0, r1 = w.block(comp)
+            if not r0 <= row < r1:
+                return  # another rank holds the row
+            row -= r0
         col = self.cols[comp]
         v = np.asarray(value)
         if v.dtype == np.uint64:
@@ -465,7 +531,8 @@ class Exec:
         """One entity's current value of a component, as numpy (at least
         1-d)."""
         comp, row = self._history.resolve(qualified)
-        value = columns_to_numpy({comp: self.cols[comp][row:row + 1]}, self.meta)[comp]
+        col = self._whole({comp: self.cols[comp]})[comp]
+        value = columns_to_numpy({comp: col[row:row + 1]}, self.meta)[comp]
         return np.atleast_1d(value[0])
 
     # -- checkpoint and resume -------------------------------------------
@@ -488,7 +555,7 @@ class Exec:
         """Rewind the device state to history row ``tick`` and cut the
         history after it.  The tick counter comes from the row's recorded
         time, not from the tick column."""
-        self.cols = columns_from_numpy(self.state_at(tick), self.meta, self.device)
+        self.cols = self._place(self.state_at(tick))
         restored_time = self._history.times[tick]
         self._history.truncate(tick + 1)
         self._tick = int(round(restored_time / self.sim_time_step))
@@ -496,7 +563,7 @@ class Exec:
     def save_checkpoint(self, path) -> None:
         """Write the live state as an npz file, one array per component at
         its host dtype (u64 and u32 columns as unsigned)."""
-        np.savez(path, **columns_to_numpy(self.cols, self.meta))
+        np.savez(path, **columns_to_numpy(self._whole(self.cols), self.meta))
 
     def load_checkpoint(self, path) -> None:
         """Read the live state back from ``save_checkpoint``'s file (or
@@ -505,7 +572,7 @@ class Exec:
             cols = {k: np.asarray(data[k]).astype(
                         _config.numpy_column_dtype(k, self.meta.components[k]), copy=False)
                     for k in self.meta.components}
-        self.cols = columns_from_numpy(cols, self.meta, self.device)
+        self.cols = self._place(cols)
 
     # -- outputs ---------------------------------------------------------
 
@@ -517,7 +584,7 @@ class Exec:
 
     def column_array(self, name: str) -> np.ndarray:
         """Latest values of a component column, as numpy."""
-        return columns_to_numpy({name: self.cols[name]}, self.meta)[name]
+        return columns_to_numpy(self._whole({name: self.cols[name]}), self.meta)[name]
 
     def history_frame(self, components) -> DataFrame:
         if isinstance(components, str):

@@ -64,12 +64,19 @@ def build_nbody(n_bodies: int, seed: int = 0, dtype=np.float64) -> el.World:
 
 
 def _kernel_gravity(builder):
+    """The kernel's gravity on the builder's bodies.  Under a row window
+    (rows cut over a mesh's ``ep`` axis, one process a device) the rank
+    takes every body's position and mass (one all-gather) and launches the
+    kernel's row-block form for its own rows only: the JAX package's
+    ``pairwise_gravity_sharded`` recipe."""
     ids = builder.entities_of("world_pos")
     pos = builder.gather("world_pos", ids)
     inertia = builder.gather("inertia", ids)
     force = builder.gather("force", ids)
     m = inertia[..., 6]
-    acc = pairwise_gravity(pos[..., 4:], m, g=G)
+    bodies, row0 = builder.all_rows(["world_pos", "inertia", "force"],
+                                    torch.cat([pos[..., 4:], m[:, None]], dim=1))
+    acc = pairwise_gravity(bodies[:, :3], bodies[:, 3], g=G, row0=row0, rows=len(ids))
     lin = force[..., 3:] + acc.to(pos.dtype) * m[:, None]
     builder.scatter("force", ids, torch.cat([force[..., :3], lin], dim=-1))
 

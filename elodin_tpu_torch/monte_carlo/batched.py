@@ -34,10 +34,13 @@ class BatchedResult:
 
     def __init__(self, meta, final_cols: dict, n_samples: int,
                  wall_seconds: float, ticks: int, history=None,
-                 history_times=None):
+                 history_times=None, samples=None):
         self.meta = meta
         self.final = final_cols
         self.n_samples = n_samples
+        # the samples ``final`` and ``history`` hold: all of them, or this
+        # rank's of a campaign across processes
+        self.samples = samples if samples is not None else range(n_samples)
         self.wall_seconds = wall_seconds
         self.ticks = ticks
         # dict component -> (n_emits, n_samples, n_entities, *shape) numpy
@@ -93,7 +96,14 @@ class BatchedCampaign:
     emits and the result are gathered in sample order on the axis's first
     device.  The shards are issued in turn from the calling thread, each
     under its device; a host thread a shard was measured slower on the card
-    (``PERF.md``, the split over cards)."""
+    (``PERF.md``, the split over cards).
+
+    On a mesh across processes (``parallel.make_mesh()`` after
+    ``init_multihost``; its other axes of size 1) each rank builds the same
+    campaign and steps only its own shards; the joins become one
+    all-reduce each over the ranks after the local vote (``until=`` an ALL,
+    ``full_rate_when`` an ANY), and the result holds the rank's samples,
+    ``result.samples`` of the ``n_samples``."""
 
     def __init__(self, world, system, n_samples: int,
                  overrides: dict[str, np.ndarray] | None = None,
@@ -133,6 +143,7 @@ class BatchedCampaign:
     def _setup(self, meta, batched: dict, system, device, mesh, axis_name) -> None:
         self.meta = meta
         self.mesh, self.axis_name = mesh, axis_name
+        self._comm = None  # the ranks' collectives on a mesh across processes
         if mesh is None:
             self.devices = [torch.device(device if device is not None else "cuda")]
         elif device is not None:
@@ -140,9 +151,17 @@ class BatchedCampaign:
         else:
             if axis_name not in mesh.axis_names:
                 self.axis_name = mesh.axis_names[0]
-            self.devices = mesh.axis_devices(self.axis_name)
+            if mesh.distributed:
+                if any(size != 1 for a, size in mesh.shape.items() if a != self.axis_name):
+                    raise ValueError(f"a campaign across processes cuts its samples over "
+                                     f"{self.axis_name!r} only; the mesh is {mesh.shape}")
+                self.devices = [mesh.devices[p] for p in mesh.local_positions()]
+                self._comm = mesh.comm()
+            else:
+                self.devices = mesh.axis_devices(self.axis_name)
         self.device = self.devices[0]
         self.n = sample_count(batched)
+        self.samples = range(self.n)  # the samples this process steps
         if mesh is None:
             self._parts = [campaign_columns_from_numpy(batched, meta, self.device)]
         else:
@@ -151,6 +170,9 @@ class BatchedCampaign:
                       campaign_columns_from_numpy(batched, meta, "cpu").items()}
             self._parts = [{k: p.shards[i] for k, p in placed.items()}
                            for i in range(len(self.devices))]
+            if mesh.distributed:
+                index = next(iter(placed.values())).indices
+                self.samples = range(index[0][0].start, index[-1][0].stop)
         # the tick is sample-uniform (sample 0's, as the JAX package reads
         # it): tracked here so the rate gates need no device read
         self.tick = int(np.asarray(batched["tick"]).reshape(-1)[0])
@@ -216,7 +238,7 @@ class BatchedCampaign:
         for rg, f in self._stages:
             if rg is None:
                 parts = self._each(f, parts)
-            elif rg.active(self.tick, *parts):
+            elif rg.active(self.tick, *parts, join=self._comm.any if self._comm else None):
                 self.gated_runs += 1
                 parts = self._each(f, parts)
         return parts
@@ -238,9 +260,10 @@ class BatchedCampaign:
 
     def _all_done(self, until, parts: list[dict]) -> bool:
         """``until`` holds for every sample of every shard (one device
-        read)."""
+        read, then one all-reduce across processes)."""
         votes = [torch.all(until(p)).to(self.device) for p in parts]
-        return bool(torch.stack(votes).all())
+        done = bool(torch.stack(votes).all())
+        return self._comm.all(done) if self._comm else done
 
     def run(self, ticks: int, history_every: int = 0,
             history_components: list[str] | None = None,
@@ -300,7 +323,7 @@ class BatchedCampaign:
             times = np.arange(1, n_done + 1, dtype=np.float64) * history_every * dt
             self._parts = parts
             return BatchedResult(self.meta, self._gather(parts), self.n, wall, ticks_run,
-                                 history=history, history_times=times)
+                                 history=history, history_times=times, samples=self.samples)
 
         n_full, rem = divmod(ticks, seg)
         t0 = time.perf_counter()
@@ -317,7 +340,8 @@ class BatchedCampaign:
         self._sync()
         wall = time.perf_counter() - t0
         self._parts = parts
-        return BatchedResult(self.meta, self._gather(parts), self.n, wall, ticks_run)
+        return BatchedResult(self.meta, self._gather(parts), self.n, wall, ticks_run,
+                             samples=self.samples)
 
 
 def write_artifacts(result: BatchedResult, out_dir, draws=None, scores=None,
@@ -394,6 +418,40 @@ def write_artifacts(result: BatchedResult, out_dir, draws=None, scores=None,
         raise RuntimeError(f"campaign degraded: {rps:.1f} rollouts/s under the "
                            f"{floor:.1f} floor")
     return summary
+
+
+def run_rank(builder: str, n_samples: int, ticks: int, *, until: str | None = None,
+             out_dir: str | None = None, **builder_kwargs) -> dict:
+    """One rank of a campaign a process a card: run it in every rank of
+    ``parallel.distributed.launch``, e.g.
+
+        launch("elodin_tpu_torch.monte_carlo.batched:run_rank",
+               [["cuda:0"], ["cuda:1"]], kwargs={
+                   "builder": "elodin_tpu_torch.examples.falcon9.batched:make_campaign",
+                   "n_samples": 10000, "ticks": 300,
+                   "until": "elodin_tpu_torch.examples.falcon9.batched:until_down"})
+
+    Each rank builds the world and the system itself: ``builder``
+    ("module:function", called as ``builder(n_samples, mesh=mesh,
+    **builder_kwargs)``) returns a ``BatchedCampaign``, or a tuple whose
+    first item is one, over ``parallel.make_mesh()``; ``until`` names the
+    stop predicate the same way (a system or a predicate does not pickle,
+    so the ranks import them).  The rank's final columns go to
+    ``out_dir/rank<k>.npz`` when it is given.  Returns the ticks run, the
+    gated ticks, the rank's samples [start, stop) and its wall seconds."""
+    from ..parallel import distributed
+    from ..parallel.mesh import make_mesh
+
+    made = distributed.import_target(builder)(n_samples, mesh=make_mesh(), **builder_kwargs)
+    campaign = made[0] if isinstance(made, tuple) else made
+    result = campaign.run(ticks, until=distributed.import_target(until) if until else None)
+    rank = distributed.process().rank
+    if out_dir is not None:
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+                 **{k: result.column(k) for k in result.final})
+    return {"rank": rank, "ticks": result.ticks, "gated_runs": campaign.gated_runs,
+            "samples": [result.samples.start, result.samples.stop],
+            "wall_s": result.wall_seconds}
 
 
 def run_batched(world, system, n_samples: int, ticks: int,

@@ -234,15 +234,21 @@ def _pairwise_gravity_cuda(pos, mass, g: float, eps: float, plan: Plan | None = 
 
 
 def pairwise_gravity(pos, mass, g: float = 6.6743e-11, eps: float = 0.0,
-                     use_kernel: bool | None = None, *, row0: int = 0,
-                     rows: int | None = None):
+                     use_pallas: bool | None = None, *, use_kernel: bool | None = None,
+                     row0: int = 0, rows: int | None = None):
     """All-pairs gravitational acceleration (rows, 3) of bodies ``[row0,
     row0 + rows)`` (all N by default) from all the bodies at ``pos`` (N, 3)
     with masses ``mass`` (N,).
 
     ``use_kernel=None`` launches the CUDA kernel on a CUDA tensor and runs
     the plain version on a CPU tensor; ``False`` runs the plain version on
-    any device; ``True`` launches the kernel and raises on a CPU tensor."""
+    any device; ``True`` launches the kernel and raises on a CPU tensor.
+    ``use_pallas`` is the JAX package's name for it; pass one or the
+    other."""
+    if use_pallas is not None:
+        if use_kernel is not None:
+            raise TypeError("pairwise_gravity: pass use_pallas or use_kernel, not both")
+        use_kernel = use_pallas
     if use_kernel is None:
         use_kernel = pos.device.type != "cpu"
     if not use_kernel:
@@ -263,12 +269,18 @@ def pairwise_gravity_sharded(pos, mass, mesh, axis: str | None = None,
     device, so each other device receives the N positions and masses by
     one peer copy each, all issued before any launch and without waiting,
     and shards on one device share its copy.  Returns the (N, 3)
-    accelerations gathered on the axis's first device."""
+    accelerations gathered on the axis's first device.  On a mesh across
+    processes each rank holds its row block and all-gathers the bodies, as
+    the JAX package does (``_pairwise_gravity_ranks``), and the result is a
+    ``Sharded`` of the rank's rows."""
     from ..parallel.mesh import gather, on_device, row_blocks, send
 
-    devices = mesh.axis_devices(axis or mesh.axis_names[0])
+    axis = axis or mesh.axis_names[0]
     pos, mass = (x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
                  for x in (pos, mass))
+    if mesh.distributed:
+        return _pairwise_gravity_ranks(pos, mass, mesh, axis, g, eps)
+    devices = mesh.axis_devices(axis)
     # every device's copy is sent before any launch: a peer copy runs on the
     # source's stream, so one issued after a launch there would wait for it
     held = {d: (send(pos, d), send(mass, d))
@@ -279,6 +291,40 @@ def pairwise_gravity_sharded(pos, mass, mesh, axis: str | None = None,
             outs.append(pairwise_gravity(*held[device], g, eps, row0=start,
                                          rows=stop - start))
     return gather(outs, devices[0])
+
+
+def _pairwise_gravity_ranks(pos, mass, mesh, axis: str, g: float, eps: float):
+    """``pairwise_gravity_sharded`` on a mesh across processes, the JAX
+    package's recipe: each rank takes its devices' row blocks of the bodies
+    it was given, all-gathers every rank's blocks and launches the
+    row-block form once a device of its own.  Positions and masses travel
+    as one (rows, 4) block, one collective a call.  Returns a ``Sharded``
+    (N, 3) of this rank's rows."""
+    from ..parallel.mesh import NamedSharding, Sharded, on_device, send
+
+    n = pos.shape[0]
+    mine, sizes, comm = mesh.rank_blocks(axis, n)
+    home = mine[0][0]
+    start, stop = mine[0][1][0], mine[-1][1][1]
+    whole = gather_bodies(comm, send(pos[start:stop], home), send(mass[start:stop], home),
+                          sizes)
+    outs, indices = [], []
+    for device, (a, b) in mine:
+        with on_device(device):
+            outs.append(pairwise_gravity(*(send(x, device) for x in whole), g, eps,
+                                         row0=a, rows=b - a))
+        indices.append((slice(a, b), slice(None)))
+    return Sharded(NamedSharding(mesh, (axis, None)), outs, None, indices=indices,
+                   global_shape=(n, 3))
+
+
+def gather_bodies(comm, pos, mass, sizes):
+    """(positions (N, 3), masses (N,)) of every rank's bodies, from this
+    rank's ``pos`` and ``mass`` blocks (rank k holds ``sizes[k]``), in
+    rank order: one all-gather of (rows, 4) blocks."""
+    bodies = torch.cat([pos, mass[:, None].to(pos.dtype)], dim=1)
+    whole = comm.all_gather_rows(bodies, sizes)
+    return whole[:, :3].contiguous(), whole[:, 3].contiguous()
 
 
 def _aligned(x):

@@ -278,9 +278,27 @@ def sixdof_rollout_sharded(pos, vel, inertia, dt: float, ticks: int, mesh,
     device: each body's arithmetic does not depend on its neighbours.
 
     On a CUDA device each non-empty shard launches the kernel (or raises);
-    on the CPU each shard runs the plain version."""
-    from ..parallel.mesh import gather, on_device, row_blocks, send
+    on the CPU each shard runs the plain version.  On a mesh across
+    processes each rank runs its own devices' blocks and returns (pos,
+    vel) as ``Sharded`` columns of its rows."""
+    from ..parallel.mesh import NamedSharding, Sharded, gather, on_device, row_blocks, send
 
+    if mesh.distributed:
+        # each rank launches once a device of its own, on its own block
+        mine, _, _ = mesh.rank_blocks(axis, np.shape(pos)[0])
+        start, stop = mine[0][1][0], mine[-1][1][1]
+        u, par = pack_state(*(x[start:stop] for x in (pos, vel, inertia)),
+                            device=mine[0][0], dtype=dtype)
+        outs = []
+        for device, (a, b) in mine:
+            with on_device(device):
+                outs.append(unpack_state(_rollout(
+                    send(u[:, a - start:b - start], device).contiguous(),
+                    send(par[:, a - start:b - start], device).contiguous(), dt, int(ticks))))
+        indices = [(slice(a, b), slice(None)) for _, (a, b) in mine]
+        return tuple(Sharded(NamedSharding(mesh, (axis, None)), [o[k] for o in outs], None,
+                             indices=indices, global_shape=(np.shape(pos)[0], width))
+                     for k, width in enumerate((7, 6)))
     devices = mesh.axis_devices(axis)
     u, par = pack_state(pos, vel, inertia, device=devices[0], dtype=dtype)
     # every shard's slice is sent before any launch: a peer copy runs on the

@@ -96,27 +96,27 @@ def psd_inv(a: Tensor, jitter: float = 0.0) -> Tensor:
     return psd_solve(a, eye.expand(a.shape), jitter)
 
 
-def solve_tri_lower(low: Tensor, b: Tensor) -> Tensor:
-    """Solve low x = b with lower-triangular ``low``; b is (..., n, m)."""
-    n = low.shape[-1]
+def solve_tri_lower(l: Tensor, b: Tensor) -> Tensor:  # noqa: E741 (the JAX package's name)
+    """Solve l x = b with lower-triangular ``l``; b is (..., n, m)."""
+    n = l.shape[-1]
     rows = []
     for i in range(n):
         acc = b[..., i, :]
         for j in range(i):
-            acc = acc - low[..., i, j, None] * rows[j]
-        rows.append(acc / low[..., i, i, None])
+            acc = acc - l[..., i, j, None] * rows[j]
+        rows.append(acc / l[..., i, i, None])
     return torch.stack(rows, dim=-2)
 
 
-def solve_tri_upper(up: Tensor, b: Tensor) -> Tensor:
-    """Solve up x = b with upper-triangular ``up``; b is (..., n, m)."""
-    n = up.shape[-1]
+def solve_tri_upper(u: Tensor, b: Tensor) -> Tensor:
+    """Solve u x = b with upper-triangular ``u``; b is (..., n, m)."""
+    n = u.shape[-1]
     rows = [None] * n
     for i in reversed(range(n)):
         acc = b[..., i, :]
         for j in range(i + 1, n):
-            acc = acc - up[..., i, j, None] * rows[j]
-        rows[i] = acc / up[..., i, i, None]
+            acc = acc - u[..., i, j, None] * rows[j]
+        rows[i] = acc / u[..., i, i, None]
     return torch.stack(rows, dim=-2)
 
 

@@ -3,14 +3,17 @@
 at its sizes and with its checks.
 
 1. 4 ticks of the vmapped batched 6-dof through ``sharded_step``, samples
-   over ``dp`` (``ep = 1``: the JAX run's ``ep = 2`` needs collectives the
-   port does not have yet, ``parallel/mesh.py``);
+   over ``dp`` (``ep = 1`` in this process);
 2. the falcon9 campaign through ``BatchedCampaign(mesh=)``: ``2 n``
    samples, 2-tick segments, ``until tick >= 3``, stopping at tick 4 of 8,
    every column within 1e-13 relative of the unsharded run on the mesh's
    first device;
 3. the whole-rollout kernel sharded over 200 bodies, 10 ticks, bitwise
-   equal to one device, in f32 and f64.
+   equal to one device, in f32 and f64;
+4. with an even ``n_devices`` of 4 or more, the JAX run's mesh, ``ep = 2``:
+   the program of 1. with the bodies over ``ep``, one process a device
+   (``dryrun_multihost.worker`` through ``distributed.launch``; ``gloo``
+   where a card repeats), every rank's shards equal to one process's.
 
     python -m elodin_tpu_torch.parallel.dryrun 4                # 4 cards
     python -m elodin_tpu_torch.parallel.dryrun 8 --devices cpu  # 8 host shards
@@ -125,7 +128,23 @@ def dryrun_multichip(n_devices: int, *, devices=None) -> dict:
                 raise AssertionError(f"sharded rollout != single device ({dtype})")
     print(f"dryrun kernel ok: 200-body whole-rollout kernel sharded over {n_devices} devices "
           "== single-device bitwise (f32, f64)")
-    return {"mesh": mesh.shape, "falcon9_ticks": sharded.ticks, "falcon9_max_rel": worst}
+    out = {"mesh": mesh.shape, "falcon9_ticks": sharded.ticks, "falcon9_max_rel": worst}
+
+    # 4. the JAX run's dp x ep mesh, one process a device
+    if n_devices % 2 == 0 and n_devices >= 4:
+        from .distributed import launch
+
+        names = [str(d) for d in mesh.devices.flat]
+        ranks = launch("elodin_tpu_torch.parallel.dryrun_multihost:worker",
+                       [[d] for d in names], kwargs={"ep": 2}, timeout=300,
+                       backend="gloo" if len(set(names)) < len(names) else None)
+        if {tuple(sorted(r["mesh"].items())) for r in ranks} != {
+                (("dp", n_devices // 2), ("ep", 2))}:
+            raise AssertionError(f"dryrun ep: ranks' meshes {[r['mesh'] for r in ranks]}")
+        print(f"dryrun ep ok: {n_devices} processes, mesh dp={n_devices // 2} ep=2, every "
+              "rank's shards == one process")
+        out["ep_mesh"] = ranks[0]["mesh"]
+    return out
 
 
 if __name__ == "__main__":

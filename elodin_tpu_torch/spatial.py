@@ -69,8 +69,10 @@ def quat_norm_sq(q: Tensor) -> Tensor:
     return torch.sum(q * q, dim=-1, keepdim=True)
 
 
-def quat_identity(device=None) -> Tensor:
-    return _as_f([0.0, 0.0, 0.0, 1.0], device)
+def quat_identity(shape=(), device=None) -> Tensor:
+    """The identity quaternion, ``shape + (4,)`` (the JAX package's
+    ``quat_identity(shape)``), on ``device``."""
+    return _as_f([0.0, 0.0, 0.0, 1.0], device).expand(tuple(shape) + (4,)).contiguous()
 
 
 def quat_inverse(q: Tensor) -> Tensor:
@@ -269,7 +271,7 @@ class Quaternion(_SpatialBase):
 
     @staticmethod
     def identity(device=None) -> "Quaternion":
-        return Quaternion.from_array(quat_identity(device))
+        return Quaternion.from_array(quat_identity(device=device))
 
     @staticmethod
     def from_axis_angle(axis, angle) -> "Quaternion":
@@ -342,7 +344,7 @@ class SpatialTransform(_SpatialBase):
         if isinstance(angular, Quaternion):
             angular = angular.inner
         device = _device_of(angular, linear)
-        q = quat_identity(device) if angular is None else _as_f(angular, device)
+        q = quat_identity(device=device) if angular is None else _as_f(angular, device)
         lin = _zeros3(device) if linear is None else _as_f(linear, device)
         self.inner = _concat_bcast(q, lin)
 

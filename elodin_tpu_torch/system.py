@@ -31,6 +31,7 @@ from torch.func import vmap
 from . import _config
 from .component import Component
 from .entity import RevEdge, TotalEdge
+from .parallel.distributed import current_window
 
 # which path each TotalEdge edge_fold took since import (or since a caller
 # reset the counts to 0), the dense masked sum or the exact sequential fold,
@@ -70,15 +71,24 @@ def _np(x) -> np.ndarray:
 
 
 class SystemBuilder:
-    """Static world metadata + current column values."""
+    """Static world metadata + current column values.
+
+    Under a row window (the step's
+    ``parallel.distributed.current_window()``: the rows of the columns cut
+    over a mesh's ``ep`` axis that this rank holds), a cut column holds
+    only the rank's block of rows, ``entities_of`` names the entities of
+    that block, and ``gather``/``scatter`` address rows within it; columns
+    that are not cut are whole, and identical, on every rank."""
 
     def __init__(self, world, cols: dict[str, torch.Tensor]):
         self.world = world  # WorldMeta
         self.cols = cols  # name -> (n_entities, *shape) tensor
+        self.window = current_window()
 
     # -- static metadata helpers -----------------------------------------
 
-    def entities_of(self, name: str) -> tuple[int, ...]:
+    def global_entities_of(self, name: str) -> tuple[int, ...]:
+        """Every entity of the column, on every rank."""
         try:
             return self.world.comp_entities[name]
         except KeyError:
@@ -87,9 +97,67 @@ class SystemBuilder:
                 "(no entity was spawned with it)"
             ) from None
 
+    def entities_of(self, name: str) -> tuple[int, ...]:
+        """The entities whose rows this builder's column holds: all of
+        them, or the window's block of a cut column."""
+        ents = self.global_entities_of(name)
+        w = self.window
+        if w is None or name not in w.cut:
+            return ents
+        key = ("entities", name)
+        if key not in w.cache:
+            r0, r1 = w.block(name)
+            w.cache[key] = ents[r0:r1]
+        return w.cache[key]
+
+    def query_layout(self, names) -> tuple[list[int], list[int]] | None:
+        """For a query over the components ``names`` under a row window that
+        cuts any of them: (the query's entities on each rank, in rank order;
+        all of its entities).  None when no window cuts them.  Decided from
+        the metadata once a window; raises ``NotImplementedError`` when the
+        ranks' parts do not add up to the whole query (components cut
+        unalike)."""
+        w = self.window
+        if w is None or not w.cut.intersection(names):
+            return None
+        key = ("query", tuple(names))
+        if key not in w.cache:
+            whole = _intersect_ordered([self.global_entities_of(n) for n in names])
+            sizes = []
+            for k in range(len(w.comm.ranks)):
+                parts = []
+                for n in names:
+                    ents = self.global_entities_of(n)
+                    if n in w.cut:
+                        r0, r1 = w.block(n, k)
+                        ents = ents[r0:r1]
+                    parts.append(ents)
+                sizes.append(len(_intersect_ordered(parts)))
+            if sum(sizes) != len(whole) or not sizes[w.comm.index]:
+                raise NotImplementedError(
+                    f"a query over {list(names)} whose entities the ranks' row windows do "
+                    f"not split into one block each ({sizes} of {len(whole)} entities)")
+            w.cache[key] = (sizes, whole)
+        return w.cache[key]
+
+    def all_rows(self, names, value: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """(``value`` -- one row for each entity of the query over ``names``
+        that this builder holds -- with every rank's rows joined in global
+        order, the global index of this builder's first row).  ``(value,
+        0)`` where no row window cuts the query; under one it is a
+        collective, which every rank calls."""
+        layout = self.query_layout(names)
+        if layout is None:
+            return value, 0
+        sizes = layout[0]
+        comm = self.window.comm
+        return comm.all_gather_rows(value, sizes), sum(sizes[:comm.index])
+
     def rows_of(self, name: str, entity_ids) -> list[int]:
         index = self.world.comp_index[name]
-        return [index[e] for e in entity_ids]
+        w = self.window
+        r0 = w.block(name)[0] if w is not None and name in w.cut else 0
+        return [index[e] - r0 for e in entity_ids]
 
     def _is_full_column(self, name: str, entity_ids) -> bool:
         """True when ``entity_ids`` are all of the column's rows in order.
@@ -249,17 +317,20 @@ class RateGroup(System):
         self.system = as_system(sys_obj)
         self.full_rate_when = full_rate_when
 
-    def active(self, tick: int, *parts: dict) -> bool:
+    def active(self, tick: int, *parts: dict, join=None) -> bool:
         """The gate for a sample-uniform host ``tick``: on schedule, or
         escalated by ``full_rate_when`` in any element of any of ``parts``
         (the column dicts of a campaign's shards, each on its own device: one
-        device read in all, taken only off schedule)."""
+        device read in all, taken only off schedule).  ``join`` (a campaign
+        across processes: ``Comm.any``) joins this process's vote with every
+        rank's."""
         if (tick - 1) % self.every == 0:
             return True
         if self.full_rate_when is None:
             return False
         votes = [torch.any(self.full_rate_when(cols)) for cols in parts]
-        return bool(torch.stack([v.to(votes[0].device) for v in votes]).any())
+        vote = bool(torch.stack([v.to(votes[0].device) for v in votes]).any())
+        return join(vote) if join is not None else vote
 
     def _run(self, builder: SystemBuilder) -> dict:
         b = SystemBuilder(builder.world, dict(builder.cols))
@@ -280,7 +351,8 @@ class RateGroup(System):
             new = self._run(builder)
             builder.cols = {k: torch.where(_bcast_mask(pred, v.dim()), new[k], v)
                             for k, v in builder.cols.items()}
-        elif self.active(int(tick), builder.cols):
+        elif self.active(int(tick), builder.cols,
+                         join=builder.window.comm.any if builder.window else None):
             builder.cols = self._run(builder)
 
     def __repr__(self):
@@ -350,13 +422,16 @@ class Query:
         return _QueryAlias(cls, item)
 
     def __init__(self, builder, entity_ids, component_data, component_classes,
-                 bufs, batch1):
+                 bufs, batch1, layout=None):
         self.builder = builder
         self.entity_ids = list(entity_ids)
         self.component_data = component_data
         self.component_classes = component_classes
         self.bufs = bufs
         self.batch1 = batch1
+        # under a row window that cuts the query: (its entities on each
+        # rank, all of them) -- SystemBuilder.query_layout
+        self.layout = layout
 
     # -- annotation protocol ---------------------------------------------
 
@@ -372,13 +447,14 @@ class Query:
         entity_ids = _intersect_ordered([builder.entities_of(n) for n in names])
         if not entity_ids:
             raise RuntimeError(f"query over {names} matched no entities")
+        layout = builder.query_layout(names)
         batch1 = len(entity_ids) == 1
         bufs = []
         for n in names:
             g = builder.gather(n, entity_ids)
             bufs.append(g[0] if batch1 else g)
         return Query(builder, entity_ids, component_data, list(t_args), bufs,
-                     batch1)
+                     batch1, layout)
 
     # -- mapping ----------------------------------------------------------
 
@@ -390,7 +466,7 @@ class Query:
                 f"{len(out_tps)} declared output types")
         component_data = [Component.of(t) for t in out_tps]
         return Query(self.builder, self.entity_ids, component_data,
-                     list(out_tps), list(bufs), self.batch1)
+                     list(out_tps), list(bufs), self.batch1, self.layout)
 
     def _args(self, bufs):
         return [from_array(c, b) for c, b in zip(self.component_classes, bufs)]
@@ -438,15 +514,44 @@ class Query:
                 return list(q.bufs)
             return [b[torch.as_tensor(rows, device=b.device)] for b in q.bufs]
 
+        if ids == self.entity_ids:
+            layout = self.layout
+        elif ids == other.entity_ids:
+            layout = other.layout
+        elif self.layout is None and other.layout is None:
+            layout = None
+        else:
+            raise NotImplementedError("a join of queries cut over ep that keeps only some "
+                                      "of the rank's entities")
         return Query(self.builder, ids,
                      self.component_data + other.component_data,
                      self.component_classes + other.component_classes,
-                     regather(self) + regather(other), len(ids) == 1)
+                     regather(self) + regather(other), len(ids) == 1, layout)
+
+    def whole(self) -> "Query":
+        """This query with every rank's entities, all-gathered in global
+        order where a row window cuts it (itself otherwise)."""
+        if self.layout is None:
+            return self
+        sizes, ids = self.layout
+        comm = self.builder.window.comm
+        bufs = [comm.all_gather_rows(b, sizes) for b in _batched(self)]
+        batch1 = len(ids) == 1
+        return Query(self.builder, ids, self.component_data, self.component_classes,
+                     [b[0] for b in bufs] if batch1 else bufs, batch1)
 
     def output(self, builder: SystemBuilder, args) -> None:
+        """Write each component back for the query's entities.  Under a row
+        window a column that is not cut takes every rank's rows (one
+        all-gather), so it stays identical on every rank."""
+        window = builder.window
         for data, buf in zip(self.component_data, self.bufs):
             value = buf if not self.batch1 else torch.as_tensor(buf)[None]
-            builder.scatter(data.name, self.entity_ids, value)
+            ids = self.entity_ids
+            if self.layout is not None and data.name not in window.cut:
+                sizes, ids = self.layout
+                value = window.comm.all_gather_rows(value, sizes)
+            builder.scatter(data.name, ids, value)
 
     def __getitem__(self, index: int):
         if len(self.bufs) > 1:
@@ -555,6 +660,9 @@ class GraphQuery:
             return self._edge_fold_total(left_query, right_query, return_type,
                                          init_value, fold_fn, additive=additive)
         builder = left_query.builder
+        # under a row window the left entities are the rank's, the right
+        # ones every rank's: an edge may reach a row another rank holds
+        right_query = right_query.whole()
         left_set = set(left_query.entity_ids)
         right_set = set(right_query.entity_ids)
 
@@ -605,9 +713,7 @@ class GraphQuery:
                      for n, c in zip(new, carry)]
 
         buf = carry[0]
-        batch1 = n_from == 1
-        return Query(builder, from_ids, [Component.of(return_type)],
-                     [return_type], [buf[0] if batch1 else buf], batch1)
+        return _fold_result(builder, left_query, from_ids, return_type, buf)
 
     # -- complete-graph path ----------------------------------------------
 
@@ -672,8 +778,7 @@ class GraphQuery:
         if self.verdicts is None or code is None or not all(
                 isinstance(v, (bool, int, float, str, type, types.ModuleType))
                 or v is None for v in cells):
-            return self._fold_is_additive(left_query, right_query, init_value,
-                                          fold_fn)
+            return self._probe(left_query, right_query, init_value, fold_fn)
 
         def shapes(tensors):
             return tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
@@ -683,9 +788,18 @@ class GraphQuery:
                shapes(left_query.bufs), tuple(right_query.component_classes),
                right_query.batch1, shapes(right_query.bufs))
         if key not in self.verdicts:
-            self.verdicts[key] = self._fold_is_additive(
-                left_query, right_query, init_value, fold_fn)
+            self.verdicts[key] = self._probe(left_query, right_query, init_value, fold_fn)
         return self.verdicts[key]
+
+    def _probe(self, left_query: Query, right_query: Query, init_value, fold_fn) -> bool:
+        """``_fold_is_additive``; under a row window every rank must reach
+        the same verdict (its draws do not depend on the rank's rows), which
+        one all-reduce checks."""
+        verdict = self._fold_is_additive(left_query, right_query, init_value, fold_fn)
+        window = left_query.builder.window
+        if window is not None:
+            verdict = window.comm.agree(verdict, "the additive probe's verdict")
+        return verdict
 
     def _edge_fold_total(self, left_query: Query, right_query: Query,
                          return_type, init_value, fold_fn,
@@ -697,6 +811,10 @@ class GraphQuery:
         the right-hand entities, vectorized over the left ones.  Each call
         adds one to ``TOTAL_FOLDS`` under the path it took."""
         builder = left_query.builder
+        # under a row window: the rank's left entities against every rank's
+        # right ones, in global order, so each left row sums the same chunks
+        # in the same order as the unsharded fold
+        right_query = right_query.whole()
         lids = list(left_query.entity_ids)
         rids = list(right_query.entity_ids)
         # a left entity whose only right-hand entity is itself has no edge
@@ -774,10 +892,23 @@ class GraphQuery:
                 out_flat = step(out_flat, lbufs, alt, [b[j] for b in rbufs],
                                 lid != rids[j])
 
-        buf = out_flat[0]
-        batch1 = n_i == 1
-        return Query(builder, from_ids, [Component.of(return_type)],
-                     [return_type], [buf[0] if batch1 else buf], batch1)
+        return _fold_result(builder, left_query, from_ids, return_type, out_flat[0])
+
+
+def _fold_result(builder: SystemBuilder, left_query: Query, from_ids, return_type,
+                 buf) -> Query:
+    """An edge fold's result over the left entities ``from_ids``; under a
+    row window it keeps the left query's layout, which needs every left
+    entity to have an edge."""
+    layout = None
+    if left_query.layout is not None:
+        if list(from_ids) != left_query.entity_ids:
+            raise NotImplementedError("an edge fold cut over ep in which some of the rank's "
+                                      "left entities have no edge")
+        layout = left_query.layout
+    batch1 = len(from_ids) == 1
+    return Query(builder, from_ids, [Component.of(return_type)], [return_type],
+                 [buf[0] if batch1 else buf], batch1, layout)
 
 
 # ---------------------------------------------------------------------------

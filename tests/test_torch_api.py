@@ -145,3 +145,67 @@ def test_edge_reverse_and_archetype_name():
     assert tel.Body.archetype_name() == jel.Body.archetype_name() == "body"
     assert tel.C.archetype_name() == jel.C.archetype_name() == "c"
     assert TestArchetype(np.float64(1.0)).archetype_name() == "test_archetype"
+
+
+def test_exec_takes_the_jax_parameters_then_device():
+    """``Exec``'s eighth parameter is ``db_path``, as in the JAX package;
+    it raises until the telemetry database is ported, and ``device``
+    follows it."""
+    from elodin_tpu_torch.execimpl import Exec as TExec
+
+    ours = list(inspect.signature(TExec).parameters)
+    ref = list(inspect.signature(JExec).parameters)
+    assert ours == ref + ["device"]
+    meta, cols = ttb.build_world().snapshot()
+    system = ttb.build_system()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
+        TExec(meta, cols, system, 1 / 120.0, None, None, True, "run.db")
+    ex = TExec(meta, cols, system, 1 / 120.0, device="cpu")
+    ex.run(2)
+    assert ex.tick() == 2 and ex.cols["world_pos"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("shape", [(), (3,), (2, 5)])
+def test_quat_identity_takes_a_shape(shape):
+    from elodin_tpu import spatial as jspatial
+    from elodin_tpu_torch import spatial as tspatial
+
+    ref = np.asarray(jspatial.quat_identity(shape))
+    ours = tspatial.quat_identity(shape)
+    assert ours.shape == ref.shape == shape + (4,)
+    np.testing.assert_array_equal(ours.numpy(), ref)
+    assert tspatial.quat_identity(device="cpu").shape == (4,)
+
+
+def test_triangular_solves_take_the_jax_names():
+    from elodin_tpu.ops import smallalg as jsa
+    from elodin_tpu_torch.ops import smallalg as tsa
+
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(4, 4)) + 4 * np.eye(4)
+    b = rng.normal(size=(4, 2))
+    low, up = np.tril(a), np.triu(a)
+    np.testing.assert_allclose(
+        tsa.solve_tri_lower(l=torch.as_tensor(low), b=torch.as_tensor(b)).numpy(),
+        np.asarray(jsa.solve_tri_lower(l=low, b=b)), rtol=1e-13)
+    np.testing.assert_allclose(
+        tsa.solve_tri_upper(u=torch.as_tensor(up), b=torch.as_tensor(b)).numpy(),
+        np.asarray(jsa.solve_tri_upper(u=up, b=b)), rtol=1e-13)
+
+
+def test_pairwise_gravity_takes_use_pallas():
+    """``use_pallas`` is the JAX package's name for the kernel switch:
+    False is the plain version on any device, True the kernel (which a CPU
+    tensor refuses); passing it beside ``use_kernel`` raises."""
+    from elodin_tpu_torch.ops import pairwise as tpw
+
+    rng = np.random.default_rng(2)
+    pos = torch.as_tensor(rng.normal(size=(20, 3)))
+    mass = torch.as_tensor(rng.uniform(1.0, 2.0, 20))
+    plain = tpw.pairwise_gravity_reference(pos, mass, 1.0, 0.1)
+    assert torch.equal(tpw.pairwise_gravity(pos, mass, 1.0, 0.1, False), plain)
+    assert torch.equal(tpw.pairwise_gravity(pos, mass, 1.0, 0.1, use_pallas=False), plain)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpw.pairwise_gravity(pos, mass, use_pallas=True)
+    with pytest.raises(TypeError, match="not both"):
+        tpw.pairwise_gravity(pos, mass, use_pallas=False, use_kernel=False)

@@ -639,3 +639,79 @@ def test_gather_onto_the_host_waits_for_the_cards(cuda):
     for k, s in enumerate(placed.shards):
         s.fill_(k + 1.0)
     np.testing.assert_array_equal(np.asarray(placed), np.repeat(np.arange(1.0, 5.0), 1 << 20))
+
+
+# -- the mesh across processes on one card: gloo, staged through the host ---------------
+
+
+def _launch_on_card(target, tmp_path, monkeypatch, n=2):
+    """``target`` of ``tests/torch_ranks.py`` in ``n`` new ranks that share
+    ``cuda:0`` over gloo (NCCL refuses two ranks on one card)."""
+    import os
+
+    from elodin_tpu_torch.parallel import distributed
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        p for p in (tests, os.environ.get("PYTHONPATH")) if p))
+    return distributed.launch(target, [["cuda:0"]] * n, backend="gloo",
+                              kwargs={"out_dir": str(tmp_path)}, timeout=600)
+
+
+@pytest.mark.gpu
+def test_ep_staged_through_the_host_on_one_card(cuda, tmp_path, monkeypatch):
+    """Two ranks on ``cuda:0``: the ``ep = 2`` six-dof step bitwise equal to
+    one process on the card, n-body through ``Exec`` on K2's row blocks (one
+    launch a tick in each rank) within 1e-12 of one process's K2 calls."""
+    import torch_ranks as ranks
+    from elodin_tpu_torch.interop import columns_from_numpy
+    from elodin_tpu_torch.models import build_batched_sixdof, build_nbody_system
+    from elodin_tpu_torch.system import build_step
+
+    meta = _launch_on_card("torch_ranks:ep_world", tmp_path, monkeypatch)
+    data = [dict(np.load(tmp_path / f"ep_rank{r}.npz")) for r in range(2)]
+    assert {m["transport"] for m in meta} == {"gloo, staged through the host"}
+    assert [m["launches"] for m in meta] == [{"kernel": ranks.NBODY_TICKS, "dense": 0}] * 2
+    world, system = build_batched_sixdof(64)
+    wmeta, cols = world.snapshot()
+    ref = build_step(wmeta, system)(columns_from_numpy(cols, wmeta, cuda))
+    for rank, d in enumerate(data):
+        got = d[f"sixdof/world_pos/0"]
+        np.testing.assert_array_equal(got, ref["world_pos"][32 * rank:32 * rank + 32].cpu())
+    exec_ = build_nbody(ranks.NBODY_BODIES, seed=2).build(
+        build_nbody_system(60.0), simulation_rate=1 / 60.0, device=cuda)
+    exec_.run(ranks.NBODY_TICKS)
+    for k in ("world_pos", "world_vel", "force"):
+        assert rel_err(data[0][f"kernel/{k}"], exec_.column_array(k)) <= 1e-12, k
+
+
+@pytest.mark.gpu
+def test_campaigns_a_process_on_one_card(cuda, tmp_path, monkeypatch):
+    """The ``until=`` and ``every`` joins and falcon9 (16 x 40) over two ranks
+    on ``cuda:0``, bitwise equal to one process on the card."""
+    import torch_ranks as ranks
+
+    meta = _launch_on_card("torch_ranks:campaigns", tmp_path, monkeypatch)
+    one, one_meta = ranks.campaign_runs(device=cuda)
+    campaign, _ = f9.make_campaign(ranks.F9_SAMPLES, seed=ranks.F9_SEED, device=cuda)
+    ref = campaign.run(ranks.F9_TICKS, until=f9.until_down)
+    for r, m in enumerate(meta):
+        joins = dict(np.load(tmp_path / f"joins_rank{r}.npz"))
+        final = dict(np.load(tmp_path / f"rank{r}.npz"))
+        a, b = m["samples"]
+        assert m["until_ticks"] == one_meta["until_ticks"] == 9
+        assert m["gated_runs"] == one_meta["gated_runs"] == 8
+        np.testing.assert_array_equal(joins["until/count"], one["until/count"][a:b])
+        np.testing.assert_array_equal(joins["every/escalated"], one["every/escalated"][a:b])
+        assert m["falcon9"]["ticks"] == ref.ticks and m["falcon9"]["gated_runs"] == 8
+        for k in ref.final:
+            np.testing.assert_array_equal(final[k], ref.column(k)[a:b], err_msg=k)
+
+
+@pytest.mark.gpu
+def test_multihost_dryrun_on_one_card(cuda):
+    from elodin_tpu_torch.parallel import dryrun_multihost
+
+    ranks = dryrun_multihost.launch(2, 1, ep=2, device="cuda:0", backend="gloo")
+    assert [r["mesh"] for r in ranks] == [{"dp": 1, "ep": 2}] * 2
+    assert all(r["devices"] == ["cuda:0"] for r in ranks)

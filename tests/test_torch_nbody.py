@@ -42,6 +42,7 @@ from elodin_tpu_torch.system import TOTAL_FOLDS
 from elodin_tpu_torch.system import GraphQuery as TGraphQuery
 from elodin_tpu_torch.system import build_step
 from torch_port_util import float_policy, rel_err
+from torch_ranks import port_nbody_example
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, TICKS, DT = 192, 20, 60.0
@@ -139,52 +140,13 @@ def _load_example():
     return mod
 
 
-def _port_example(el):
-    """``examples/n-body/main.py``'s world and system, written in torch."""
-    AU, M_SUN, M_EARTH, G = 1.496e11, 1.989e30, 5.972e24, 6.6743e-11
-
-    def vec(*x):
-        return torch.tensor(x, dtype=torch.float64)
-
-    def build_world(n_asteroids, seed):
-        w = el.World()
-        rng = np.random.default_rng(seed)
-        w.spawn(el.Body(inertia=el.Inertia(M_SUN)), name="sun")
-        v_earth = np.sqrt(G * M_SUN / AU)
-        w.spawn(el.Body(world_pos=el.WorldPos(linear=vec(AU, 0.0, 0.0)),
-                        world_vel=el.WorldVel(linear=vec(0.0, v_earth, 0.0)),
-                        inertia=el.Inertia(M_EARTH)), name="earth")
-        for i in range(n_asteroids):
-            r = rng.uniform(2.0, 3.5) * AU
-            theta = rng.uniform(0, 2 * np.pi)
-            v = np.sqrt(G * M_SUN / r)
-            w.spawn(el.Body(
-                world_pos=el.WorldPos(linear=vec(r * np.cos(theta), r * np.sin(theta), 0.0)),
-                world_vel=el.WorldVel(linear=vec(-v * np.sin(theta), v * np.cos(theta), 0.0)),
-                inertia=el.Inertia(rng.uniform(1e15, 1e20))), name=f"asteroid{i}")
-        return w
-
-    @el.system
-    def gravity(graph: el.GraphQuery[el.TotalEdge],
-                query: el.Query[el.WorldPos, el.Inertia]) -> el.Query[el.Force]:
-        def gravity_fn(force, a_pos, a_inertia, b_pos, b_inertia):
-            r = a_pos.linear() - b_pos.linear()
-            norm = torch.linalg.norm(r)
-            f = (G * a_inertia.mass()) * ((b_inertia.mass() / norm**3) * r)
-            return el.Force(linear=force.force() - f)
-
-        return graph.edge_fold(query, query, el.Force, el.Force(), gravity_fn)
-
-    return build_world, el.six_dof(sys=gravity, integrator=el.Integrator.SemiImplicit)
-
-
 def test_example_world_matches_jax():
     """4 asteroids x 500 ticks, as ``tests/test_examples.py`` runs the
     example; the example's fold is not additive in the carry (it drops the
     torque), so both packages fold sequentially, and the port probes it
     once."""
     mod = _load_example()
-    build_world, system = _port_example(tel)
+    build_world, system = port_nbody_example(tel)
     with float_policy("f64"):
         jexec = mod.build_world(n_asteroids=4, seed=1).build(
             mod.build_system(), simulation_rate=1.0 / mod.SIM_TIME_STEP)

@@ -4,8 +4,9 @@ package's on its virtual 8-device CPU mesh (``tests/conftest.py``).
 
 The port builds its meshes from explicit devices, ``["cpu"] * 8`` and
 ``["cpu"] * 4``: on the CPU every shard runs the kernels' plain versions.
-The JAX tests of the ``ep`` axis (``tests/test_parallel.py``'s entity-sharded
-step and edge fold) have no counterpart: the port raises for ``ep > 1``.
+In one process the port raises for ``ep > 1``; the JAX tests of the ``ep``
+axis (``tests/test_parallel.py``'s entity-sharded step and edge fold) have
+their counterparts across processes in ``tests/test_torch_multihost.py``.
 
 Stated tolerances: mesh shapes, shardings, sample splits, the sharded 6-dof
 rollout against one device, every sharded campaign against the unsharded
@@ -144,15 +145,24 @@ def test_put_global_splits_as_jax_device_put(jmesh):
     np.testing.assert_array_equal(np.asarray(whole), x)
 
 
-def test_ep_axis_and_init_multihost_wait_for_torch_distributed():
+def test_ep_axis_and_init_multihost_wait_for_torch_distributed(monkeypatch):
+    """Rows over ``ep > 1`` in one process still raise: the shards of an
+    eager tick must exchange rows in lockstep, so they need one process a
+    device (``tests/test_torch_multihost.py`` runs them so), and the error
+    names the launcher.  ``init_multihost`` forms a ``torch.distributed``
+    group now, and without a job to join it says what it lacks.  Rows that
+    the ep axis does not divide stay whole, as in the JAX package."""
     mesh = _port_mesh(8, ep=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="one process a device along it.*launch"):
         tp.shard_cols(mesh, {"x": torch.zeros((64, 3))})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="one process a device"):
+        tp.sharded_step(lambda s: s, mesh, {"x": torch.zeros((2, 64, 3))}, sample_axis=True)
+    for k in ("ELODIN_COORDINATOR", "ELODIN_NUM_PROCESSES", "ELODIN_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="ELODIN_COORDINATOR"):
         tp.init_multihost()
-    # rows that the ep axis does not divide stay whole, as in the JAX package
     placed = tp.shard_cols(mesh, {"x": torch.zeros((7, 3))})
-    assert placed["x"].dim is None
+    assert placed["x"].dim is None and len(placed["x"].shards) == 1
 
 
 def test_row_blocks_cover_every_row_once():
@@ -569,6 +579,7 @@ def test_dryrun_multichip_on_eight_host_shards(capsys):
 
     out = dryrun_multichip(8, devices=["cpu"] * 8)
     assert out["mesh"] == {"dp": 8, "ep": 1} and out["falcon9_ticks"] == 4
+    assert out["ep_mesh"] == {"dp": 4, "ep": 2}
     text = capsys.readouterr().out
     assert "dryrun_multichip ok" in text and "dryrun falcon9 ok" in text
-    assert "dryrun kernel ok" in text
+    assert "dryrun kernel ok" in text and "dryrun ep ok: 8 processes" in text
