@@ -61,8 +61,9 @@ The n-body path and its kernel (pairwise_gravity):
    times, every fold must take the dense path with no probe, and the state
    must agree with the kernel path on the same world to ≤ 1e-10 per channel
    group; then its device trace over 5 ticks.
-10. the fold as ``examples/n-body/main.py`` writes it (no additive hint)
-    on ``build_nbody(128)``, f64, ``Exec.run(10)``: the additive probe must
+10. the fold as ``examples/n-body/main.py`` writes it (no additive hint;
+    the port's ``examples.n_body.main.gravity``) on ``build_nbody(128)``,
+    f64, ``Exec.run(10)``: the additive probe must
     run once and reject it, every tick must fold sequentially, the kernel
     must launch 0 times, and the state must agree with the kernel path on
     the same world to ≤ 1e-10.
@@ -322,7 +323,28 @@ this script's functions; a rank that fails fails the phase):
     bitwise equal to one process.  With 4 cards, four nccl ranks, one a
     card: the kernels' rank forms timed and held as above.
 
-37. a JSON line of the kernels (time, plain version's time and bound at
+The core API and the world's editor hooks (eager PyTorch ops; with both
+launch counts set to 0 just before and read just after, the examples and
+the apollo campaign launch no kernel and n-body's batched runner launches
+K2 once a tick):
+
+37. the eight core-API examples through ``World.build`` and ``Exec.run``
+    on the card and on the CPU in one process, f64: rotating-cube 120
+    ticks, geo-frames 30, ellipsoid 240, covariance-ellipsoids 97,
+    sensor-camera 240, voyager 240, the apollo-lander descent 240 and
+    n-body's ``main`` (4 asteroids) 100; every column card against CPU
+    within 1e-9 (max |Δ| / max |ref| per channel group), the ``Exec``'s
+    ``schematic_content`` the world's and the sensor cameras registered;
+    ms/tick of each and a device trace of 10 ticks.  Then
+    ``examples.n_body.batched.run(8192, 200)`` in f32 and f64 (a warm and
+    a timed pass): 400 K2 launches a call, 200 of them timed, a finite
+    momentum drift, pairs/s and entity-steps/s; the first 5 ticks held
+    against the same runner on the dense edge fold (1e-4 / 1e-12); a
+    device trace of 20 ticks.  Then apollo-lander's ``run_dispersed(1024,
+    seed=0)`` campaign cut to ``APOLLO_TICKS`` (1000 of 9000) on the card
+    and on the CPU: the final state within 1e-9, sample-ticks/s of each,
+    a device trace of 10 ticks.
+38. a JSON line of the kernels (time, plain version's time and bound at
     the main path's width, launches on the main path; no PyTorch call
     computes either function, so ``library_ms`` is null; under
     ``sharded``, phase 35's launches, times and bound of the sharded
@@ -330,7 +352,8 @@ this script's functions; a rank that fails fails the phase):
     above, and against one card as ``one_card_max_abs_err``; under
     ``processes``, phase 36's launches by rank and, per dtype, the slowest
     rank's time, the bound of its rows' work, its errors and, with 4
-    cards, the four nccl ranks' time), then the last line
+    cards, the four nccl ranks' time; under ``core_api``, phase 37's
+    launches and K2's runner figures), then the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -465,6 +488,15 @@ SPLIT_PLAIN_TICKS = 20  # ticks of K1's sharded call held to the plain version
 PROC_RANKS = 2  # ranks that share cuda:0 over gloo
 PROC_SIXDOF_TICKS = 5  # ticks of the ep-cut six-dof step at the main width
 PROC_TIMEOUT_S = 600
+# phase 37: the core API's examples, card against CPU, f64, at these depths
+CORE_TOL = 1e-9
+CORE_TRACE_TICKS = 10
+NBODY_BATCHED = (8192, 200)  # examples/n_body/batched.py's defaults
+NBODY_BATCHED_PLAIN_TICKS = 5  # ticks held to the dense edge fold
+NBODY_BATCHED_TRACE_TICKS = 20
+APOLLO_SAMPLES = 1024  # run_dispersed's default width
+APOLLO_TICKS = 1000  # of its 9000: the phase's time
+APOLLO_TRACE_TICKS = 10
 
 
 _START = time.perf_counter()
@@ -812,11 +844,10 @@ def _run_timed(exec_, ticks):
 def _nbody(el, interop):
     """Phases 7-12: the n-body path and its kernel; returns the kernel's
     entry of the kernels line."""
-    from elodin_tpu_torch.entity import TotalEdge
     from elodin_tpu_torch.models import build_nbody
     from elodin_tpu_torch.models.nbody import G
     from elodin_tpu_torch.ops import pairwise as pw
-    from elodin_tpu_torch.system import TOTAL_FOLDS, GraphQuery, Query, system
+    from elodin_tpu_torch.system import TOTAL_FOLDS
 
     state = ("world_pos", "world_vel", "world_accel")
 
@@ -919,19 +950,10 @@ def _nbody(el, interop):
           f"device busy {busy / EDGE_TRACE_TICKS:.4g} ms/tick, wall "
           f"{wall / EDGE_TRACE_TICKS:.4g} ms/tick, idle share {1 - busy / wall:.2%}")
 
-    # 10. the example's form of the fold (examples/n-body/main.py, no
+    # 10. the example's form of the fold (examples/n_body/main.py, no
     # additive hint): the probe runs once and rejects it (it drops the
     # carry's torque), so every tick folds sequentially
-    @system
-    def probed_gravity(graph: GraphQuery[TotalEdge],
-                       query: Query[el.WorldPos, el.Inertia]) -> Query[el.Force]:
-        def gravity_fn(force, a_pos, a_inertia, b_pos, b_inertia):
-            r = a_pos.linear() - b_pos.linear()
-            norm = torch.linalg.norm(r)
-            f = (G * a_inertia.mass()) * ((b_inertia.mass() / norm**3) * r)
-            return el.Force(linear=force.force() - f)
-
-        return graph.edge_fold(query, query, el.Force, el.Force(), gravity_fn)
+    from elodin_tpu_torch.examples.n_body.main import gravity as probed_gravity
 
     el.set_float_policy("f64")
     probed = build_nbody(PROBED_BODIES, seed=2).build(
@@ -2850,6 +2872,203 @@ def _proc_entry(name, ranks, four):
     return entry
 
 
+def _core_examples():
+    """(label, make, ticks, sensor cameras) of each core-API example:
+    ``make()`` gives a fresh (world, system, simulation rate)."""
+    from elodin_tpu_torch.examples.apollo_lander import main as apollo
+    from elodin_tpu_torch.examples.covariance_ellipsoids import main as cov
+    from elodin_tpu_torch.examples.ellipsoid import sim as ellipsoid
+    from elodin_tpu_torch.examples.geo_frames import sim as geo
+    from elodin_tpu_torch.examples.n_body import main as n_body
+    from elodin_tpu_torch.examples.rotating_cube import sim as cube
+    from elodin_tpu_torch.examples.sensor_camera import main as cam
+    from elodin_tpu_torch.examples.voyager import main as voyager
+
+    return [
+        ("rotating-cube", lambda: (cube.world(), cube.system(), 1.0 / cube.SIM_TIME_STEP),
+         120, ()),
+        ("geo-frames", lambda: (geo.world(), geo.system(), 1.0 / geo.SIM_TIME_STEP), 30, ()),
+        ("ellipsoid", lambda: (ellipsoid.world()[0], ellipsoid.system(), ellipsoid.SIM_RATE),
+         240, ("drone.scene_cam",)),
+        ("covariance-ellipsoids", lambda: (cov.world(), cov.system(), cov.SIM_RATE), 97, ()),
+        ("sensor-camera", lambda: (cam.world(), cam.system(), 1.0 / cam.SIM_TIME_STEP), 240,
+         ("ball_0.scene_cam", "ball_1.thermal_cam")),
+        ("voyager", lambda: (*voyager.build(), voyager.SIMULATION_RATE_HZ), 240, ()),
+        ("apollo-lander descent",
+         lambda: (apollo.build_world(), apollo.build_system(), apollo.SIM_RATE), 240, ()),
+        ("n-body main (4 asteroids)",
+         lambda: (n_body.build_world(4, 1), n_body.build_system(), 1.0 / n_body.SIM_TIME_STEP),
+         100, ()),
+    ]
+
+
+def _hold_columns(label, ours: dict, ref: dict, tol):
+    """Every column of two dicts of numpy columns: a float column by max
+    |Δ| / max |ref| (a (..., 7) or (..., 6) column per channel group, each
+    against its own scale; an all-zero reference by max |Δ|), the rest
+    equal.  Returns the worst relative error; raises past ``tol``."""
+    worst, parts = 0.0, []
+    for name, r in ref.items():
+        o = ours[name]
+        if r.dtype.kind != "f":
+            if not np.array_equal(o, r):
+                raise AssertionError(f"{label}: column {name} differs")
+            continue
+        groups = ({7: ((0, 4), (4, 7)), 6: ((0, 3), (3, 6))}.get(r.shape[-1], ((0, None),))
+                  if r.ndim >= 2 else ((0, None),))
+        for lo, hi in groups:
+            d = float(np.abs(o[..., lo:hi] - r[..., lo:hi]).max()) if r.size else 0.0
+            scale = float(np.abs(r[..., lo:hi]).max()) if r.size else 0.0
+            rel = d / scale if scale > 0.0 else d
+            if not np.isfinite(o[..., lo:hi]).all() or not rel <= tol:
+                raise AssertionError(f"{label}: column {name}[{lo}:{hi}] {rel:.3e} "
+                                     f"exceeds {tol:g} (or is not finite)")
+            worst = max(worst, rel)
+            parts.append(rel)
+    print(f"{label}: every column within {worst:.3e} (tol {tol:g}; "
+          f"{len(parts)} float channel groups)")
+    return worst
+
+
+def _core_example_phase(el, interop):
+    """Phase 37 a: each core-API example through ``World.build`` and
+    ``Exec.run`` on the card and on the CPU in one process, f64."""
+    el.set_float_policy("f64")
+    for label, make, ticks, cams in _core_examples():
+        cols, walls = {}, {}
+        for device in ("cuda", "cpu"):
+            world, system, rate = make()
+            exec_ = world.build(system, simulation_rate=rate, device=device)
+            if exec_.schematic_content != world.schematic_content:
+                raise AssertionError(f"{label}: Exec.schematic_content is not the world's")
+            missing = [c for c in cams if c not in world.assets]
+            if missing or sum("cam" in k for k in world.assets) != len(cams):
+                raise AssertionError(f"{label}: sensor cameras {sorted(world.assets)}, "
+                                     f"expected {list(cams)}")
+            _sync(device)
+            t0 = time.perf_counter()
+            exec_.run(ticks)
+            _sync(device)
+            walls[device] = time.perf_counter() - t0
+            cols[device] = interop.columns_to_numpy(exec_.cols, exec_.meta)
+            if exec_.tick() != ticks:
+                raise AssertionError(f"{label}: tick {exec_.tick()} != {ticks}")
+            if device == "cuda":
+                card = exec_
+        schematic = (f"schematic of {len(card.schematic_content)} characters"
+                     if card.schematic_content else "no schematic")
+        print(f"phase 37, {label}: {ticks} ticks, card {walls['cuda'] / ticks * 1e3:.4g} "
+              f"ms/tick, CPU {walls['cpu'] / ticks * 1e3:.4g} ms/tick; {schematic}, "
+              f"sensor cameras {list(cams)}")
+        _hold_columns(f"phase 37, {label}, card vs CPU", cols["cuda"], cols["cpu"], CORE_TOL)
+        ops, busy, wall = _device_trace(lambda: card.run(CORE_TRACE_TICKS))
+        print(f"device trace, {label} (run({CORE_TRACE_TICKS})): "
+              f"{ops / CORE_TRACE_TICKS:.1f} device ops/tick, device busy "
+              f"{busy / CORE_TRACE_TICKS:.4g} ms/tick, wall {wall / CORE_TRACE_TICKS:.4g} "
+              f"ms/tick, idle share {1 - busy / wall:.2%}")
+
+
+def _nbody_batched_phase():
+    """Phase 37 b: ``examples.n_body.batched.run`` at its default 8192
+    bodies x 200 ticks in f32 and f64 on the card, K2's launches counted
+    over each call (a warm and a timed pass); the first ticks held to the
+    same runner on the dense edge fold.  Returns the kernels-line entry."""
+    from elodin_tpu_torch.examples.n_body import batched
+    from elodin_tpu_torch.ops import pairwise as pw
+
+    n, ticks = NBODY_BATCHED
+    out = {}
+    for dtype, tol in ((np.float32, 1e-4), (np.float64, 1e-12)):
+        name = np.dtype(dtype).name
+        stats = {}
+        pw.LAUNCHES = 0
+        res = batched.run(n, ticks, dtype=dtype, device="cuda", stats=stats)
+        torch.cuda.synchronize()
+        launches = pw.LAUNCHES
+        print(f"phase 37, n_body.batched.run({n}, {ticks}), {name}: {res}; K2 launches "
+              f"{launches} in the call, {stats['launches']} in the timed pass")
+        if launches != 2 * ticks or stats["launches"] != ticks:
+            raise AssertionError(f"n_body.batched {name}: {launches} launches "
+                                 f"({stats['launches']} timed), not one a tick")
+        if not math.isfinite(res["momentum_drift_rel"]):
+            raise AssertionError(f"n_body.batched {name}: momentum drift not finite")
+        states = {}
+        for use_kernel in (True, False):
+            step, state = batched.setup(n, use_kernel, dtype, "cuda")
+            states[use_kernel] = batched.advance(step, state, NBODY_BATCHED_PLAIN_TICKS)
+        _, err_abs = _compare(f"phase 37, n_body.batched {name}, K2 vs dense edge fold, "
+                              f"{n} bodies x {NBODY_BATCHED_PLAIN_TICKS} ticks",
+                              states[True], states[False], ("world_pos", "world_vel"), tol)
+        step, state = batched.setup(n, True, dtype, "cuda")
+        ops, busy, wall = _device_trace(
+            lambda: batched.advance(step, state, NBODY_BATCHED_TRACE_TICKS))
+        print(f"device trace, n_body.batched {name} ({n} bodies, "
+              f"{NBODY_BATCHED_TRACE_TICKS} ticks): "
+              f"{ops / NBODY_BATCHED_TRACE_TICKS:.1f} device ops/tick, device busy "
+              f"{busy / NBODY_BATCHED_TRACE_TICKS:.4g} ms/tick, wall "
+              f"{wall / NBODY_BATCHED_TRACE_TICKS:.4g} ms/tick, idle share "
+              f"{1 - busy / wall:.2%}")
+        out[name] = {"launches": launches, "timed_pass_launches": stats["launches"],
+                     "wall_s": res["wall_s"], "pairs_per_sec": res["pairs_per_sec"],
+                     "entity_steps_per_sec": res["entity_steps_per_sec"],
+                     "momentum_drift_rel": res["momentum_drift_rel"],
+                     "max_abs_err_vs_edge_fold": err_abs,
+                     "idle_share": 1 - busy / wall}
+    return out
+
+
+def _apollo_campaign_phase():
+    """Phase 37 c: apollo-lander's ``run_dispersed`` at its full width,
+    1024 samples from seed 0, cut in depth to ``APOLLO_TICKS``: the card's
+    campaign against the CPU's at ``CORE_TOL``, sample-ticks/s and the
+    device trace of a few more ticks."""
+    from elodin_tpu_torch.examples.apollo_lander import main as apollo
+
+    results = {}
+    for device in ("cuda", "cpu"):
+        campaign = apollo.make_campaign(APOLLO_SAMPLES, 0, device=device)
+        results[device] = campaign.run(APOLLO_TICKS)
+        if device == "cuda":
+            card = campaign
+    card_result = results["cuda"]
+    print(f"phase 37, apollo-lander run_dispersed({APOLLO_SAMPLES}, seed=0) cut to "
+          f"{APOLLO_TICKS} of its {int(180 * apollo.SIM_RATE)} ticks: card "
+          f"{card_result.wall_seconds:.4g} s "
+          f"({APOLLO_SAMPLES * APOLLO_TICKS / card_result.wall_seconds:.4g} sample-ticks/s, "
+          f"{card_result.wall_seconds / APOLLO_TICKS * 1e3:.4g} ms/tick), CPU "
+          f"{results['cpu'].wall_seconds:.4g} s "
+          f"({APOLLO_SAMPLES * APOLLO_TICKS / results['cpu'].wall_seconds:.4g} "
+          "sample-ticks/s)")
+    _hold_columns("phase 37, apollo-lander campaign, card vs CPU, final state",
+                  {k: card_result.column(k) for k in card_result.final},
+                  {k: results["cpu"].column(k) for k in results["cpu"].final}, CORE_TOL)
+    s = apollo.scores(card_result)
+    print(f"phase 37, apollo-lander campaign at tick {APOLLO_TICKS}: landed "
+          f"{int(s['landed'].sum())}, min altitude {float(s['final'][:, 2].min()):.4g} m, "
+          f"min fuel {float(s['fuel'].min()):.6g} kg")
+    ops, busy, wall = _device_trace(lambda: card.run(APOLLO_TRACE_TICKS))
+    print(f"device trace, apollo-lander campaign ({APOLLO_SAMPLES} samples, "
+          f"run({APOLLO_TRACE_TICKS})): {ops / APOLLO_TRACE_TICKS:.1f} device ops/tick, "
+          f"device busy {busy / APOLLO_TRACE_TICKS:.4g} ms/tick, wall "
+          f"{wall / APOLLO_TRACE_TICKS:.4g} ms/tick, idle share {1 - busy / wall:.2%}")
+
+
+def _core_phase(el, interop, kernels):
+    """Phase 37: the core API and the world's editor hooks.  The examples
+    and the apollo campaign launch no hand kernel; n-body's batched runner
+    launches K2 once a tick.  Adds ``core_api`` entries to the kernels
+    line."""
+    _no_launches("phase 37, core-API examples", lambda: _core_example_phase(el, interop))
+    batched = _nbody_batched_phase()
+    _no_launches("phase 37, apollo-lander campaign", _apollo_campaign_phase)
+    for entry in kernels:
+        entry["core_api"] = (
+            {"path": "examples/n_body/batched.run(8192, 200): warm and timed pass, "
+                     "launches counted over the call", **batched}
+            if entry["name"] == "pairwise_gravity" else {"launches": 0})
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2915,12 +3134,14 @@ def main() -> int:
     _clock("phase 35")
     _process_phase(el, kernels)
     _clock("phase 36")
+    _core_phase(el, interop, kernels)
+    _clock("phase 37")
 
     if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
            for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
 
-    # 37. results
+    # 38. results
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

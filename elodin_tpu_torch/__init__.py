@@ -27,6 +27,7 @@ from __future__ import annotations
 from dataclasses import dataclass  # noqa: F401  (el.dataclass)
 from typing import Annotated  # noqa: F401  (el.Annotated)
 
+import numpy as np
 import torch
 
 from . import interop
@@ -36,11 +37,13 @@ from .component import (  # noqa: F401
     ComponentId,
     ComponentType,
     PrimitiveType,
+    ShapeIndexer,
 )
 from .entity import Archetype, C, Edge, EntityId, RevEdge, TotalEdge  # noqa: F401
 from .execimpl import Exec
 from .six_dof import Integrator, six_dof  # noqa: F401
 from .spatial import (  # noqa: F401
+    MRP,
     Quaternion,
     SpatialForce,
     SpatialInertia,
@@ -69,6 +72,16 @@ from .diff import rollout  # noqa: F401
 JaxSim = TorchSim  # the JAX package's name, for sources written against it
 
 __version__ = "0.1.0"
+
+
+def skew(arr):
+    """Skew-symmetric (cross-product) matrix of a 3-vector; batched."""
+    from . import spatial as _spatial
+
+    # numpy's dtype rules are jnp.asarray's under x64: a float list is f64
+    return _spatial.skew(arr if isinstance(arr, torch.Tensor)
+                         else torch.as_tensor(np.asarray(arr)))
+
 
 # ---------------------------------------------------------------------------
 # Built-in component aliases
@@ -121,6 +134,9 @@ SimulationTimeStep = Annotated[
     torch.Tensor,
     Component("simulation_time_step", ComponentType.F64, metadata={"priority": 8}),
 ]
+Camera = Annotated[
+    torch.Tensor, Component("camera", ComponentType(PrimitiveType.U64, (1,)))
+]
 
 
 @dataclass
@@ -172,7 +188,7 @@ class World(WorldBuilder):
                                       "database is not ported (ROADMAP.md §1 item 6)")
         self.set_sim_time_step(1.0 / simulation_rate)
         meta, cols = self.snapshot()
-        return Exec(
+        exec_ = Exec(
             meta,
             cols,
             system,
@@ -181,6 +197,8 @@ class World(WorldBuilder):
             telemetry_rate=telemetry_rate,
             device=device,
         )
+        exec_.schematic_content = self.schematic_content
+        return exec_
 
     def run(
         self,

@@ -4,8 +4,7 @@ from the entity's seed with JAX's threefry (``ops.threefry``), and a
 ground bounce, stepped by ``six_dof`` (RK4).
 
 The JAX example's ``lax.cond`` in ``bounce`` is a ``torch.where`` over both
-branches, which are cheap and finite.  Its ``w.schematic`` layout belongs
-to the interactive stack, which is not ported.  (This module defines
+branches, which are cheap and finite.  (This module defines
 ``@el.map`` functions, so it must not use postponed annotations.)
 """
 
@@ -52,6 +51,14 @@ def world(seed: int = 0) -> el.World:
             WindData(seed=np.int64(seed)),
         ],
         name="ball",
+    )
+    w.schematic(
+        """
+        coordinate frame=ENU
+        viewport name=Viewport pos="(0,0,0,0, 8,2,4)" look_at="(0,0,0,0, 0,0,3)"
+        object_3d frame="ENU" ball.world_pos { sphere radius=0.2 { color orange } }
+        """,
+        "ball.kdl",
     )
     return w
 

@@ -5,9 +5,8 @@ tick, flying an attitude test-point plan.  The flight software sees only
 its sensors: the rate PID consumes the filtered, bias-drifting gyro and
 the angle loop closes on the MEKF attitude estimate.
 
-The JAX example's ``w.schematic`` (its viewer layout) is left out: the
-port has no ``World.schematic``.  This module defines ``@el.system``
-functions, so it must not use postponed annotations.
+This module defines ``@el.system`` functions, so it must not use
+postponed annotations.
 """
 
 import math
@@ -92,6 +91,19 @@ def build_world(tilt_deg: float = 0.0, alt_m: float = 2.0) -> el.World:
             ctl.AttitudeController(),
         ],
         name="drone",
+    )
+    w.schematic(
+        """
+        hsplit {
+            viewport name=Viewport look_at="drone.world_pos" show_grid=#true
+            vsplit {
+                graph name="Attitude estimate" eql="drone.attitude_estimate"
+                graph name="Estimate error" eql="drone.attitude_estimate_error"
+                graph name="Gyro" eql="drone.gyro"
+                graph name="Motors" eql="drone.motor_pwm"
+            }
+        }
+        """
     )
     return w
 

@@ -4,10 +4,8 @@ periodic orbit, gravity applied through an explicit-edge fold over six
 ``GravityConstraint`` edges, stepped by ``six_dof`` (RK4).
 
 The JAX example builds its world at import and ends in ``w.run``; here
-``build_world`` and ``build_system`` return them.  Its ``w.schematic``
-layout belongs to the interactive stack, which is not ported.  (This
-module defines ``@el.system`` functions, so it must not use postponed
-annotations.)
+``build_world`` and ``build_system`` return them.  (This module defines
+``@el.system`` functions, so it must not use postponed annotations.)
 """
 
 import torch
@@ -70,6 +68,17 @@ def build_world() -> el.World:
     w.spawn(GravityConstraint(b, c), name="B -> C")
     w.spawn(GravityConstraint(c, a), name="C -> A")
     w.spawn(GravityConstraint(c, b), name="C -> B")
+    w.schematic("""
+    coordinate frame=ECEF
+    hsplit {
+        tabs share=0.2 { hierarchy; schematic_tree }
+        tabs share=0.6 {
+            viewport name=Viewport pos="(0,0,0,0,0,0,3)" look_at="(0,0,0,0,0,0,0)" hdr=#true
+            graph "a.world_pos" name=Graph
+        }
+        tabs share=0.2 { inspector }
+    }
+""")
     return w
 
 

@@ -20,6 +20,13 @@ def _f64(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float64, device=device)
 
 
+def _prime_vertical(lat: torch.Tensor) -> torch.Tensor:
+    """The prime vertical radius N(lat).  ``A / t`` of a Python number
+    ``A`` is ``t.reciprocal() * A`` in torch, one rounding more than JAX's
+    division: the numerator is a tensor here."""
+    return torch.full_like(lat, _WGS84_A) / torch.sqrt(1.0 - _WGS84_E2 * torch.sin(lat) ** 2)
+
+
 def _device(*xs):
     return next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
 
@@ -44,7 +51,7 @@ def ned_to_ecef(lat, long) -> torch.Tensor:
 def geodetic_to_ecef(lat, long, alt) -> torch.Tensor:
     device = _device(lat, long, alt)
     lat, long, alt = _f64(lat, device), _f64(long, device), _f64(alt, device)
-    n = _WGS84_A / torch.sqrt(1.0 - _WGS84_E2 * torch.sin(lat) ** 2)
+    n = _prime_vertical(lat)
     x = (n + alt) * torch.cos(lat) * torch.cos(long)
     y = (n + alt) * torch.cos(lat) * torch.sin(long)
     z = (n * (1.0 - _WGS84_E2) + alt) * torch.sin(lat)
@@ -59,9 +66,9 @@ def ecef_to_geodetic(r, iterations: int = 5):
     p = torch.sqrt(x * x + y * y)
     lat = torch.atan2(z, p * (1.0 - _WGS84_E2))
     for _ in range(iterations):
-        n = _WGS84_A / torch.sqrt(1.0 - _WGS84_E2 * torch.sin(lat) ** 2)
+        n = _prime_vertical(lat)
         alt = p / torch.cos(lat) - n
         lat = torch.atan2(z, p * (1.0 - _WGS84_E2 * n / (n + alt)))
-    n = _WGS84_A / torch.sqrt(1.0 - _WGS84_E2 * torch.sin(lat) ** 2)
+    n = _prime_vertical(lat)
     alt = p / torch.cos(lat) - n
     return lat, long, alt

@@ -1,6 +1,6 @@
 """Spatial algebra on torch tensors, batched over leading axes
 (counterpart of ``elodin_tpu/spatial.py``: the six-dof math, ``Quaternion``
-and the spatial value types with their methods; MRP is not ported yet).
+the spatial value types with their methods, and ``MRP``).
 
 Array layouts (trailing axis; any number of leading batch axes), the same
 as the JAX package's:
@@ -227,6 +227,12 @@ def sixdof_accel(force: Tensor, inertia: Tensor, pos: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _cross(a: Tensor, b: Tensor) -> Tensor:
+    """``jnp.cross`` over the trailing axis, with its broadcasting of the
+    leading axes (``torch.linalg.cross`` needs equal ranks)."""
+    return torch.linalg.cross(*torch.broadcast_tensors(a, b))
+
+
 def _concat_bcast(a: Tensor, b: Tensor) -> Tensor:
     """Concatenate (..., k) and (..., j) with leading-dim broadcasting."""
     batch = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
@@ -258,6 +264,9 @@ class _SpatialBase:
         obj = object.__new__(cls)
         obj.inner = arr if isinstance(arr, Tensor) else torch.as_tensor(arr)
         return obj
+
+    def asarray(self) -> Tensor:
+        return self.inner
 
     def __repr__(self):
         return f"{type(self).__name__}({self.inner})"
@@ -403,6 +412,31 @@ class SpatialMotion(_SpatialBase):
 
     __rmul__ = __mul__
 
+    def cross(self, other: "SpatialMotion") -> "SpatialMotion":
+        """Spatial-motion cross product."""
+        w, v = self.inner[..., :3], self.inner[..., 3:]
+        ow, ov = other.inner[..., :3], other.inner[..., 3:]
+        ang = _cross(w, ow)
+        lin = _cross(w, ov) + _cross(v, ow)
+        return SpatialMotion.from_array(torch.cat([ang, lin], dim=-1))
+
+    def cross_dual(self, other: "SpatialForce") -> "SpatialForce":
+        """Motion x* force."""
+        w, v = self.inner[..., :3], self.inner[..., 3:]
+        t, f = other.inner[..., :3], other.inner[..., 3:]
+        force = _cross(w, t) + _cross(v, f)
+        torque = _cross(w, f)
+        return SpatialForce.from_array(torch.cat([torque, force], dim=-1))
+
+    def offset(self, pos: "SpatialTransform") -> "SpatialMotion":
+        """Re-express through a transform: rotate both halves by its
+        attitude, then add the rotated angular part crossed with its
+        translation to the linear part."""
+        q = pos.inner[..., :4]
+        ang = quat_rotate(q, self.inner[..., :3])
+        vel = quat_rotate(q, self.inner[..., 3:]) + _cross(ang, pos.inner[..., 4:])
+        return SpatialMotion.from_array(torch.cat([ang, vel], dim=-1))
+
 
 class SpatialForce(_SpatialBase):
     """[tx,ty,tz, fx,fy,fz] wrench."""
@@ -482,6 +516,7 @@ class SpatialInertia(_SpatialBase):
 # ``Annotated[Quaternion, Component("name")]`` without a type takes its
 # type from here.
 from .component import Component as _Component, ComponentType as _ComponentType  # noqa: E402
+from .component import PrimitiveType as _PrimitiveType  # noqa: E402
 
 for _cls, _name, _ty in (
     (Quaternion, "quaternion_f64", _ComponentType.Quaternion),
@@ -493,3 +528,34 @@ for _cls, _name, _ty in (
     _cls.metadata = _Component(_name, _ty)
     _cls.__metadata__ = (_cls.metadata,)
 del _cls, _name, _ty
+
+
+class MRP(_SpatialBase):
+    """Modified Rodrigues Parameters, ``(..., 3)``."""
+
+    def __init__(self, arr=None):
+        self.inner = _zeros3() if arr is None else _as_f(arr)
+
+    @staticmethod
+    def from_quaternion(q) -> "MRP":
+        """The quaternion's vector part over ``w + 1`` (no switch to the
+        shorter rotation; singular at ``w = -1``)."""
+        if isinstance(q, Quaternion):
+            q = q.inner
+        qv = q if isinstance(q, Tensor) else _as_f(q)
+        return MRP.from_array(qv[..., :3] / (qv[..., 3:4] + 1.0))
+
+    def to_quaternion(self) -> Quaternion:
+        m = self.inner
+        mag2 = torch.sum(m * m, dim=-1, keepdim=True)
+        q = torch.cat([2.0 * m, 1.0 - mag2], dim=-1) / (mag2 + 1.0)
+        return Quaternion.from_array(q)
+
+    def __add__(self, rhs: "MRP") -> "MRP":
+        return MRP.from_array(self.inner + rhs.inner)
+
+
+MRP.metadata = _Component("mrp_f64", _ComponentType(_PrimitiveType.F64, (3,)))
+MRP.__metadata__ = (MRP.metadata,)
+SpatialTransform.mrp = lambda self: MRP.from_quaternion(self.angular())
+Quaternion.mrp = lambda self: MRP.from_quaternion(self)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass, field
+from typing import Any
 
 import numpy as np
 
@@ -112,6 +113,10 @@ class WorldBuilder:
         self.entity_len: int = 0
         self.entity_metadata: dict[int, EntityMetadata] = {}
         self.sim_time_step: float = DEFAULT_TIME_STEP
+        self.recipes: dict[str, Any] = {}
+        self.schematic_content: str | None = None
+        self.schematic_path: str | None = None
+        self.assets: dict[str, Any] = {}
         self._spawn_globals()
 
     # -- globals -------------------------------------------------------------
@@ -220,6 +225,39 @@ class WorldBuilder:
                 if component.ty is None:
                     component = component._with_ty(component_type_of_value(arr))
                 self._push(int(entity_id), component, arr)
+
+    # -- editor hooks: stored for the editor and the telemetry database ------
+
+    def schematic(self, default_content: str | None = None, path: str | None = None) -> None:
+        """The editor's layout.  It is validated here, so a malformed
+        schematic fails at load with the offending node named."""
+        if default_content is not None:
+            from . import schematic as _schematic
+
+            _schematic.load(default_content)
+        self.schematic_content = default_content
+        self.schematic_path = path
+
+    def recipe(self, recipe_obj) -> None:
+        name = getattr(recipe_obj, "name", repr(recipe_obj))
+        self.recipes[name] = recipe_obj
+
+    def glb(self, *args, **kwargs):
+        self.assets[f"glb_{len(self.assets)}"] = (args, kwargs)
+
+    def spawn_camera(self, *args, **kwargs):
+        self.assets[f"camera_{len(self.assets)}"] = (args, kwargs)
+
+    def sensor_camera(self, entity=None, name: str = "cam", **config):
+        """A sensor camera's config on an entity, under the key
+        ``"<entity name>.<name>"``; the frames are rendered by the editor."""
+        eid = int(getattr(entity, "inner", entity)) if entity is not None else None
+        meta = self.entity_metadata.get(eid)
+        prefix = meta.name if meta is not None else str(eid)
+        self.assets[f"{prefix}.{name}"] = (
+            ("sensor_camera",),
+            {"entity": eid, "name": name, **config},
+        )
 
     # -- snapshot ----------------------------------------------------------
 

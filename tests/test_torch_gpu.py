@@ -715,3 +715,45 @@ def test_multihost_dryrun_on_one_card(cuda):
     ranks = dryrun_multihost.launch(2, 1, ep=2, device="cuda:0", backend="gloo")
     assert [r["mesh"] for r in ranks] == [{"dp": 1, "ep": 2}] * 2
     assert all(r["devices"] == ["cuda:0"] for r in ranks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-4), (np.float64, 1e-12)])
+def test_nbody_batched_runner_on_k2(cuda, dtype, tol):
+    """``examples/n_body/batched.run`` at 1024 bodies x 5 ticks: one K2
+    launch a timed tick, and the final columns within the K2 gates of the
+    same runner on the dense edge fold."""
+    from elodin_tpu_torch.examples.n_body import batched
+
+    ours, ref = {}, {}
+    out = batched.run(1024, 5, dtype=dtype, device="cuda", stats=ours)
+    batched.run(1024, 5, use_kernel=False, dtype=dtype, device="cuda", stats=ref)
+    assert ours["launches"] == 5 and ref["launches"] == 0
+    assert np.isfinite(out["momentum_drift_rel"])
+    for name in ("world_pos", "world_vel"):
+        assert rel_err(ours["final"][name], ref["final"][name]) <= tol, name
+
+
+@pytest.mark.gpu
+def test_core_example_on_the_card_matches_its_cpu(cuda):
+    """The sensor-camera room, 240 ticks in f64, card against CPU at 1e-9;
+    its schematic and cameras carried onto the card's ``Exec``."""
+    from elodin_tpu_torch import _config
+    from elodin_tpu_torch.examples.sensor_camera import main as sim
+    from elodin_tpu_torch.interop import columns_to_numpy
+
+    _config.set_float_policy("f64")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        w = sim.world()
+        exec_ = w.build(sim.system(), simulation_rate=1.0 / sim.SIM_TIME_STEP, device=device)
+        exec_.run(240)
+        assert exec_.schematic_content == w.schematic_content
+        assert sorted(k for k in w.assets if "cam" in k) == ["ball_0.scene_cam",
+                                                             "ball_1.thermal_cam"]
+        runs[device] = columns_to_numpy(exec_.cols, exec_.meta)
+    for name, ref in runs["cpu"].items():
+        if ref.dtype.kind == "f":
+            assert rel_err(runs["cuda"][name], ref) <= 1e-9, name
+        else:
+            np.testing.assert_array_equal(runs["cuda"][name], ref, err_msg=name)

@@ -74,6 +74,18 @@ PORT_MODULES = [
     "elodin_tpu_torch.parallel",
     "elodin_tpu_torch.parallel.mesh",
     "elodin_tpu_torch.parallel.dryrun",
+    "elodin_tpu_torch.kdl",
+    "elodin_tpu_torch.schematic",
+    "elodin_tpu_torch.examples.falcon9.main",
+    "elodin_tpu_torch.examples.rotating_cube.sim",
+    "elodin_tpu_torch.examples.geo_frames.sim",
+    "elodin_tpu_torch.examples.ellipsoid.sim",
+    "elodin_tpu_torch.examples.covariance_ellipsoids.main",
+    "elodin_tpu_torch.examples.sensor_camera.main",
+    "elodin_tpu_torch.examples.voyager.main",
+    "elodin_tpu_torch.examples.apollo_lander.main",
+    "elodin_tpu_torch.examples.n_body.main",
+    "elodin_tpu_torch.examples.n_body.batched",
 ]
 
 

@@ -42,7 +42,8 @@ from elodin_tpu_torch.system import TOTAL_FOLDS
 from elodin_tpu_torch.system import GraphQuery as TGraphQuery
 from elodin_tpu_torch.system import build_step
 from torch_port_util import float_policy, rel_err
-from torch_ranks import port_nbody_example
+from elodin_tpu_torch.examples.n_body import batched as port_batched
+from elodin_tpu_torch.examples.n_body import main as port_n_body
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, TICKS, DT = 192, 20, 60.0
@@ -146,7 +147,7 @@ def test_example_world_matches_jax():
     torque), so both packages fold sequentially, and the port probes it
     once."""
     mod = _load_example()
-    build_world, system = port_nbody_example(tel)
+    build_world, system = port_n_body.build_world, port_n_body.build_system()
     with float_policy("f64"):
         jexec = mod.build_world(n_asteroids=4, seed=1).build(
             mod.build_system(), simulation_rate=1.0 / mod.SIM_TIME_STEP)
@@ -217,3 +218,43 @@ def test_probe_classifies_folds_as_jax_does():
                 _probe(gq, el, f, comps, el.Force)
                 for f in (nbody_fold(el, norm), sum_fold, max_fold(maximum))]
     assert verdicts["elodin_tpu"] == verdicts["elodin_tpu_torch"] == [False, True, False]
+
+
+def _jax_batched_final(n_bodies, ticks, dtype):
+    """The columns JAX's ``examples/n-body/batched.py::run`` ends with: its
+    program (``ticks`` ticks of ``build_step``) applied twice, warm and
+    timed, from the same start."""
+    from elodin_tpu.system import build_step as j_build_step
+
+    world = jnb.build_nbody(n_bodies, seed=2, dtype=dtype)
+    world.set_sim_time_step(60.0)
+    meta, cols = world.snapshot()
+    step = j_build_step(meta, jnb.build_system(60.0, use_kernel=True))
+    prog = jax.jit(lambda s: jax.lax.fori_loop(0, ticks, lambda _i, x: step(x), s))
+    state = {k: jax.numpy.asarray(v if v.dtype.kind != "f" else v.astype(dtype))
+             for k, v in cols.items()}
+    return {k: np.asarray(v) for k, v in prog(prog(state)).items()}
+
+
+@pytest.mark.parametrize("use_kernel", [False, True], ids=["edge_fold", "kernel_plain"])
+def test_batched_runner_matches_jax(use_kernel):
+    """``examples/n-body/batched.py``'s runner at 256 bodies x 50 ticks, f64,
+    on the CPU (the JAX test's size, ``tests/test_examples.py:700``): the
+    port's final columns within 1e-12 of the JAX program's, its momentum
+    drift under the JAX test's 1e-10, the JAX dict's keys."""
+    jmod = importlib.util.module_from_spec(importlib.util.spec_from_file_location(
+        "n_body_batched_for_port", os.path.join(REPO, "examples", "n-body", "batched.py")))
+    jmod.__spec__.loader.exec_module(jmod)
+    ref = jmod.run(256, 50, dtype=np.float64)
+    stats = {}
+    with float_policy("f64"):
+        out = port_batched.run(256, 50, use_kernel=use_kernel, dtype=np.float64,
+                               device="cpu", stats=stats)
+        jfinal = _jax_batched_final(256, 50, np.float64)
+    assert out.keys() == ref.keys()
+    assert out["momentum_drift_rel"] < 1e-10, out
+    assert out["entity_steps_per_sec"] > 0
+    assert stats["launches"] == 0  # the CPU runs the plain version, no launch
+    for name in ("world_pos", "world_vel", "force"):
+        assert rel_err(stats["final"][name], jfinal[name]) <= 1e-12, name
+    np.testing.assert_array_equal(stats["final"]["tick"], jfinal["tick"].astype(np.int64))

@@ -3,8 +3,7 @@
 ``tests/test_torch_gpu.py``): functions that ``parallel.distributed.launch``
 calls in new processes, which import torch and the port only (no JAX) and
 write what they computed to npz files that the tests hold against the JAX
-package and against one process.  ``port_nbody_example`` is also
-``tests/test_torch_nbody.py``'s.
+package and against one process.
 
 No ``from __future__ import annotations``: this module defines
 ``@el.system`` functions, which read their annotations as objects."""
@@ -22,45 +21,6 @@ import elodin_tpu_torch as el
 NBODY_BODIES, NBODY_TICKS = 64, 10
 SEGMENT_TICKS = 3  # the until= case's segments (tests/test_parallel.py's)
 F9_SAMPLES, F9_TICKS, F9_SEED = 16, 40, 3
-
-
-def port_nbody_example(el):
-    """``examples/n-body/main.py``'s world and system, written in torch."""
-    AU, M_SUN, M_EARTH, G = 1.496e11, 1.989e30, 5.972e24, 6.6743e-11
-
-    def vec(*x):
-        return torch.tensor(x, dtype=torch.float64)
-
-    def build_world(n_asteroids, seed):
-        w = el.World()
-        rng = np.random.default_rng(seed)
-        w.spawn(el.Body(inertia=el.Inertia(M_SUN)), name="sun")
-        v_earth = np.sqrt(G * M_SUN / AU)
-        w.spawn(el.Body(world_pos=el.WorldPos(linear=vec(AU, 0.0, 0.0)),
-                        world_vel=el.WorldVel(linear=vec(0.0, v_earth, 0.0)),
-                        inertia=el.Inertia(M_EARTH)), name="earth")
-        for i in range(n_asteroids):
-            r = rng.uniform(2.0, 3.5) * AU
-            theta = rng.uniform(0, 2 * np.pi)
-            v = np.sqrt(G * M_SUN / r)
-            w.spawn(el.Body(
-                world_pos=el.WorldPos(linear=vec(r * np.cos(theta), r * np.sin(theta), 0.0)),
-                world_vel=el.WorldVel(linear=vec(-v * np.sin(theta), v * np.cos(theta), 0.0)),
-                inertia=el.Inertia(rng.uniform(1e15, 1e20))), name=f"asteroid{i}")
-        return w
-
-    @el.system
-    def gravity(graph: el.GraphQuery[el.TotalEdge],
-                query: el.Query[el.WorldPos, el.Inertia]) -> el.Query[el.Force]:
-        def gravity_fn(force, a_pos, a_inertia, b_pos, b_inertia):
-            r = a_pos.linear() - b_pos.linear()
-            norm = torch.linalg.norm(r)
-            f = (G * a_inertia.mass()) * ((b_inertia.mass() / norm**3) * r)
-            return el.Force(linear=force.force() - f)
-
-        return graph.edge_fold(query, query, el.Force, el.Force(), gravity_fn)
-
-    return build_world, el.six_dof(sys=gravity, integrator=el.Integrator.SemiImplicit)
 
 
 def _shard_arrays(prefix: str, placed: dict) -> dict:
@@ -103,8 +63,10 @@ def ep_world(out_dir: str) -> dict:
                               columns_from_numpy(cols, meta, "cpu"))
     arrays.update(_shard_arrays("sixdof", fn(placed)))
 
-    build_world, system = port_nbody_example(el)
-    meta, cols = build_world(14, 3).snapshot()
+    from elodin_tpu_torch.examples.n_body import main as n_body
+
+    system = n_body.build_system()
+    meta, cols = n_body.build_world(14, 3).snapshot()
     folds = dict(TOTAL_FOLDS)
     fn, placed = sharded_step(build_step(meta, system), mesh,
                               columns_from_numpy(cols, meta, "cpu"))
