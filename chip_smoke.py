@@ -344,7 +344,31 @@ K2 once a tick):
     seed=0)`` campaign cut to ``APOLLO_TICKS`` (1000 of 9000) on the card
     and on the CPU: the final state within 1e-9, sample-ticks/s of each,
     a device trace of 10 ticks.
-38. a JSON line of the kernels (time, plain version's time and bound at
+The last four core-API examples, the ECI frames and the World Magnetic
+Model (eager PyTorch ops and host numpy; with both launch counts set to 0
+just before and read just after, the phase launches neither kernel):
+
+38. in f64, on the card and on the CPU in one process, through
+    ``World.build`` and ``Exec.run``: frames' ball drop in ENU and NED
+    (120 ticks each; the card's falls the right way, ENU = -NED within
+    1e-12) and its two-body orbit (600 ticks, the energy drift under 1e-6
+    on the card); rocket-barrowman (1200 ticks on the card: altitude
+    over 300 m, nose within 25 deg of the velocity); crazyflie-edu (1000
+    of the lab's 8500 ticks: hovering at 0.6 ± 0.05 m on the card);
+    rc-jet (600 of 11520).  Every column card against CPU within 1e-9
+    (max |Δ| / max |ref| per channel group), rocket-barrowman at 300
+    ticks (``RB_COMPARE_TICKS``: its angle of attack is an arccos near 1,
+    and where the JAX package's own result moves by ~1e-8 under its
+    compiler's FMA contraction, card and CPU do too); ms/tick of each on
+    each device (the last three without history, as their JAX tests run)
+    and a device trace of 10 ticks.  ``eci_to_ecef`` at
+    2022-06-15 06:30 UTC without IERS data is orthonormal and
+    ``ecef_to_eci`` its transpose.  ``wmm.field_ned`` on a global 0.25
+    deg grid at sea level (1440 x 720 = 1,036,800 points) on the card: ms
+    a call (CUDA events after a warm call), points/s, device ops a call,
+    idle share, peak card memory; every 4th point held to the CPU within
+    1e-12 of max |B|; one point's ms and device ops.
+39. a JSON line of the kernels (time, plain version's time and bound at
     the main path's width, launches on the main path; no PyTorch call
     computes either function, so ``library_ms`` is null; under
     ``sharded``, phase 35's launches, times and bound of the sharded
@@ -353,7 +377,8 @@ K2 once a tick):
     ``processes``, phase 36's launches by rank and, per dtype, the slowest
     rank's time, the bound of its rows' work, its errors and, with 4
     cards, the four nccl ranks' time; under ``core_api``, phase 37's
-    launches and K2's runner figures), then the last line
+    launches and K2's runner figures; under ``flight_examples``, phase
+    38's launches), then the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -497,6 +522,22 @@ NBODY_BATCHED_TRACE_TICKS = 20
 APOLLO_SAMPLES = 1024  # run_dispersed's default width
 APOLLO_TICKS = 1000  # of its 9000: the phase's time
 APOLLO_TRACE_TICKS = 10
+# phase 38: the last four core-API examples, the ECI frames and wmm, f64
+FLIGHT_TOL = 1e-9
+FLIGHT_TRACE_TICKS = 10
+DROP_TICKS, TWO_BODY_TICKS = 120, 600  # the JAX test's depths
+# rocket-barrowman flies its whole JAX test on the card; the card is held
+# to the CPU at 300 ticks, where the JAX package's own result is
+# reproducible to ~1e-12 (its angle of attack is an arccos near 1, which
+# magnifies a last-bit difference ~1e8-fold: card against CPU 3.9e-11 at
+# 400 ticks, 7.6e-9 at 1200 on an H100 80GB HBM3 at 700 W)
+RB_TICKS, RB_COMPARE_TICKS = 1200, 300
+CF_TICKS = 1000  # of the lab's 8500: the JAX test's first gate, hovering at 0.6 m
+RJ_TICKS = 600  # of the mission's 11520
+WMM_LON, WMM_LAT = 1440, 720  # a global 0.25 deg grid of cell centres at sea level
+WMM_YEAR, WMM_TOL = 2020.0, 1e-12
+WMM_CPU_STRIDE = 4  # every 4th grid point held to the CPU (~10 s for the whole grid there)
+WMM_CPU_CHUNK = 131072
 
 
 _START = time.perf_counter()
@@ -2961,11 +3002,16 @@ def _core_example_phase(el, interop):
               f"ms/tick, CPU {walls['cpu'] / ticks * 1e3:.4g} ms/tick; {schematic}, "
               f"sensor cameras {list(cams)}")
         _hold_columns(f"phase 37, {label}, card vs CPU", cols["cuda"], cols["cpu"], CORE_TOL)
-        ops, busy, wall = _device_trace(lambda: card.run(CORE_TRACE_TICKS))
-        print(f"device trace, {label} (run({CORE_TRACE_TICKS})): "
-              f"{ops / CORE_TRACE_TICKS:.1f} device ops/tick, device busy "
-              f"{busy / CORE_TRACE_TICKS:.4g} ms/tick, wall {wall / CORE_TRACE_TICKS:.4g} "
-              f"ms/tick, idle share {1 - busy / wall:.2%}")
+        _exec_trace(label, card, CORE_TRACE_TICKS)
+
+
+def _exec_trace(label, exec_, n):
+    """The device trace of ``exec_.run(n)``: device ops and busy time a
+    tick, and the idle share."""
+    ops, busy, wall = _device_trace(lambda: exec_.run(n))
+    print(f"device trace, {label} (run({n})): {ops / n:.1f} device ops/tick, device busy "
+          f"{busy / n:.4g} ms/tick, wall {wall / n:.4g} ms/tick, idle share "
+          f"{1 - busy / wall:.2%}")
 
 
 def _nbody_batched_phase():
@@ -3069,6 +3115,201 @@ def _core_phase(el, interop, kernels):
 
 
 
+def _flight_pair(label, make, ticks, compare_ticks=None, history=True):
+    """An example through ``World.build`` and ``Exec.run`` on the card
+    (``ticks``) and on the CPU (``compare_ticks``, by default the same),
+    every column of the two held at ``compare_ticks``; ``history=False``
+    runs both without history, as the JAX tests of rocket-barrowman,
+    crazyflie-edu and rc-jet do.  Returns the card's Exec."""
+    from elodin_tpu_torch import interop
+
+    compare_ticks = compare_ticks or ticks
+    world, system, rate = make()
+    card = world.build(system, simulation_rate=rate, device="cuda")
+    world, system, rate = make()
+    cpu = world.build(system, simulation_rate=rate, device="cpu")
+    card.record_history = cpu.record_history = history
+    card_s = _run_timed(card, compare_ticks)
+    cpu_s = _run_timed(cpu, compare_ticks)
+    _hold_columns(f"phase 38, {label}, card vs CPU at {compare_ticks} ticks",
+                  interop.columns_to_numpy(card.cols, card.meta),
+                  interop.columns_to_numpy(cpu.cols, cpu.meta), FLIGHT_TOL)
+    if ticks > compare_ticks:
+        card_s += _run_timed(card, ticks - compare_ticks)
+    _all_finite(f"phase 38, {label} on the card", card)
+    print(f"phase 38, {label}: card {ticks} ticks, {card_s / ticks * 1e3:.4g} ms/tick; CPU "
+          f"{compare_ticks} ticks, {cpu_s / compare_ticks * 1e3:.4g} ms/tick "
+          f"({'with' if history else 'no'} history)")
+    return card
+
+
+def _flight_examples_phase():
+    """Phase 38 a: frames, rocket-barrowman, crazyflie-edu and rc-jet on
+    the card and on the CPU in one process, f64, with the JAX tests'
+    gates on the card's runs."""
+    from elodin_tpu_torch.examples.crazyflie_edu import sim as cf
+    from elodin_tpu_torch.examples.frames import main as fr
+    from elodin_tpu_torch.examples.rc_jet import sim as rj
+    from elodin_tpu_torch.examples.rocket_barrowman import main as rb
+    from elodin_tpu_torch.spatial import quat_rotate
+
+    z = {}
+    for frame in ("ENU", "NED"):
+        walls = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            z[frame, device] = fr.run_drop(frame, DROP_TICKS, device=device)
+            walls[device] = time.perf_counter() - t0
+        err = float(np.abs(z[frame, "cuda"] - z[frame, "cpu"]).max()
+                    / np.abs(z[frame, "cpu"]).max())
+        print(f"phase 38, frames drop {frame}: {DROP_TICKS} ticks, card "
+              f"{walls['cuda'] / DROP_TICKS * 1e3:.4g} ms/tick, CPU "
+              f"{walls['cpu'] / DROP_TICKS * 1e3:.4g} ms/tick (each with the world's "
+              f"build), card vs CPU {err:.3e}")
+        if not err <= FLIGHT_TOL:
+            raise AssertionError(f"frames drop {frame}: card vs CPU {err:.3e}")
+    z_enu, z_ned = z["ENU", "cuda"], z["NED", "cuda"]
+    if not (z_enu[-1] < z_enu[0] and z_ned[-1] > z_ned[0]):
+        raise AssertionError("frames drop: the ball fell the wrong way on the card")
+    np.testing.assert_allclose(z_enu, -z_ned, atol=1e-12)
+
+    card = _flight_pair("frames two-body", lambda: (*fr.build_two_body(), fr.SIM_RATE),
+                        TWO_BODY_TICKS)
+    e = fr.total_energy(card.history(["a.world_pos", "b.world_pos", "a.world_vel",
+                                      "b.world_vel"]))
+    drift = float(abs(e[-1] - e[0]) / abs(e[0]))
+    print(f"phase 38, frames two-body on the card: energy drift {drift:.3e} over "
+          f"{TWO_BODY_TICKS} ticks (gate 1e-6)")
+    if not drift < 1e-6:
+        raise AssertionError(f"frames two-body: energy drift {drift:.3e}")
+    _exec_trace("frames two-body", card, FLIGHT_TRACE_TICKS)
+
+    card = _flight_pair("rocket-barrowman",
+                        lambda: (rb.world(), rb.system(), 1.0 / rb.SIM_TIME_STEP),
+                        RB_TICKS, RB_COMPARE_TICKS, history=False)
+    pos = np.asarray(card.read_component("calisto.world_pos")).ravel()
+    vel = np.asarray(card.read_component("calisto.world_vel")).ravel()
+    nose = quat_rotate(torch.as_tensor(pos[:4]),
+                       torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64)).numpy()
+    angle = float(np.degrees(np.arccos(np.clip(nose @ vel[3:] / np.linalg.norm(vel[3:]),
+                                               -1, 1))))
+    print(f"phase 38, rocket-barrowman on the card at {RB_TICKS} ticks: altitude "
+          f"{pos[6]:.6g} m (gate > 300), nose to velocity {angle:.4g} deg (gate < 25)")
+    if not (pos[6] > 300.0 and angle < 25.0):
+        raise AssertionError(f"rocket-barrowman: altitude {pos[6]}, angle {angle}")
+    _exec_trace("rocket-barrowman", card, FLIGHT_TRACE_TICKS)
+
+    card = _flight_pair("crazyflie-edu", lambda: (cf.world(), cf.system(), cf.SIM_RATE_HZ),
+                        CF_TICKS, history=False)
+    p = np.asarray(card.read_component("crazyflie.world_pos")).ravel()[4:]
+    print(f"phase 38, crazyflie-edu on the card at {CF_TICKS} ticks: position {p} "
+          "(gate: z within 0.05 of 0.6 m)")
+    if not abs(p[2] - 0.6) < 0.05:
+        raise AssertionError(f"crazyflie-edu: not hovering at 0.6 m: {p}")
+    _exec_trace("crazyflie-edu", card, FLIGHT_TRACE_TICKS)
+
+    card = _flight_pair("rc-jet", lambda: (rj.world(), rj.system(), rj.SIM_RATE_HZ), RJ_TICKS,
+                        history=False)
+    _exec_trace("rc-jet", card, FLIGHT_TRACE_TICKS)
+
+
+def _eci_check():
+    """Phase 38 b: the ECI frames are host numpy: ``eci_to_ecef`` at
+    2022-06-15 06:30 UTC without IERS data is orthonormal, and
+    ``ecef_to_eci`` is its transpose."""
+    from elodin_tpu_torch import frames
+
+    ep = frames.Epoch.from_gregorian_utc(2022, 6, 15, 6, 30, 0)
+    dcm = frames.eci_to_ecef(ep, frames.IERS(None))
+    orth = float(np.abs(dcm @ dcm.T - np.eye(3)).max())
+    det = float(np.linalg.det(dcm))
+    print(f"phase 38, eci_to_ecef at 2022-06-15 06:30 UTC (no IERS data): "
+          f"max |R R^T - I| {orth:.3e}, det {det!r}")
+    if not (orth <= 1e-12 and abs(det - 1.0) <= 1e-12):
+        raise AssertionError("eci_to_ecef is not orthonormal")
+    if not np.array_equal(frames.ecef_to_eci(ep, frames.IERS(None)), dcm.T):
+        raise AssertionError("ecef_to_eci is not eci_to_ecef's transpose")
+
+
+def _wmm_phase():
+    """Phase 38 c: ``wmm.field_ned`` on a global 0.25 deg grid at sea
+    level on the card: ms a call, points/s, device ops, idle share and
+    peak memory; every ``WMM_CPU_STRIDE``-th point held to the CPU; then
+    one point.  Returns the figures."""
+    from elodin_tpu_torch import wmm
+
+    lon = torch.arange(WMM_LON, dtype=torch.float64) * (2 * math.pi / WMM_LON) - math.pi
+    lat = (torch.arange(WMM_LAT, dtype=torch.float64) + 0.5) * (math.pi / WMM_LAT) - math.pi / 2
+    grid_lat, grid_lon = (g.reshape(-1) for g in torch.meshgrid(lat, lon, indexing="ij"))
+    n = grid_lat.numel()
+    card_lat, card_lon = grid_lat.cuda(), grid_lon.cuda()
+    alt = torch.zeros_like(card_lat)
+
+    def call():
+        return wmm.field_ned(card_lat, card_lon, alt, WMM_YEAR)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    b = call()
+    torch.cuda.synchronize()
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    ms_min, ms_med = _time_ms(call, reps=3)
+    ops, busy, wall = _device_trace(call)
+    print(f"phase 38, wmm.field_ned on the card, {n} points ({WMM_LON} x {WMM_LAT}, 0.25 deg, "
+          f"sea level, year {WMM_YEAR}): {ms_min:.4g} ms a call (median {ms_med:.4g}, CUDA "
+          f"events, 3 calls after a warm one), {n / ms_min * 1e3:.4g} points/s; "
+          f"{ops} device ops a call, device busy {busy:.4g} ms of {wall:.4g} ms "
+          f"(traced), idle share {1 - busy / wall:.2%}; peak card memory {peak_mib:.1f} MiB "
+          "above its inputs")
+    if b.shape != (n, 3) or not torch.isfinite(b).all():
+        raise AssertionError("wmm.field_ned on the card: not finite or of the wrong shape")
+    t0 = time.perf_counter()
+    held_lat, held_lon = grid_lat[::WMM_CPU_STRIDE], grid_lon[::WMM_CPU_STRIDE]
+    ref = torch.cat([wmm.field_ned(held_lat[i:i + WMM_CPU_CHUNK], held_lon[i:i + WMM_CPU_CHUNK],
+                                   0.0, WMM_YEAR)
+                     for i in range(0, held_lat.numel(), WMM_CPU_CHUNK)])
+    cpu_s = time.perf_counter() - t0
+    ours = b[::WMM_CPU_STRIDE].cpu()
+    err = float((ours - ref).abs().max() / ref.abs().max())
+    print(f"phase 38, wmm card vs CPU on every {WMM_CPU_STRIDE}th point ({ref.shape[0]} "
+          f"points, CPU {cpu_s:.3g} s in chunks of {WMM_CPU_CHUNK}): max |Δ| / max |B| "
+          f"{err:.3e} (tol {WMM_TOL:g}); max |B| {float(ref.abs().max()):.6g} nT")
+    if not err <= WMM_TOL:
+        raise AssertionError(f"wmm card vs CPU {err:.3e} exceeds {WMM_TOL:g}")
+    one_lat, one_lon = card_lat[:1].clone(), card_lon[:1].clone()
+    one_ms, _ = _time_ms(lambda: wmm.field_ned(one_lat, one_lon, 0.0, WMM_YEAR), reps=3,
+                         calls=10)
+    one_ops, one_busy, one_wall = _device_trace(
+        lambda: wmm.field_ned(one_lat, one_lon, 0.0, WMM_YEAR))
+    print(f"phase 38, wmm.field_ned of one point on the card: {one_ms:.4g} ms a call (CUDA "
+          f"events, 10 back-to-back calls), {one_ops} device ops, idle share "
+          f"{1 - one_busy / one_wall:.2%}")
+    return {"points": n, "ms": ms_min, "points_per_s": n / ms_min * 1e3,
+            "device_ops": ops, "idle_share": 1 - busy / wall, "peak_mib": peak_mib,
+            "rel_err_vs_cpu": err, "one_point_ms": one_ms, "one_point_ops": one_ops}
+
+
+def _flight_phase(kernels):
+    """Phase 38: the last four core-API examples, the ECI frames and wmm.
+    Neither hand kernel runs; adds ``flight_examples`` entries to the
+    kernels line."""
+    from elodin_tpu_torch import set_float_policy
+
+    set_float_policy("f64")
+    t0 = time.perf_counter()
+
+    def run():
+        _flight_examples_phase()
+        _eci_check()
+        return _wmm_phase()
+
+    _no_launches("phase 38, the flight examples, ECI frames and wmm", run)
+    print(f"phase 38: {time.perf_counter() - t0:.1f} s")
+    for entry in kernels:
+        entry["flight_examples"] = {"launches": 0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3136,12 +3377,14 @@ def main() -> int:
     _clock("phase 36")
     _core_phase(el, interop, kernels)
     _clock("phase 37")
+    _flight_phase(kernels)
+    _clock("phase 38")
 
     if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
            for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
 
-    # 38. results
+    # 39. results
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

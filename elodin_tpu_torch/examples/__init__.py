@@ -1,3 +1,3 @@
-"""Example models of the port, each a subpackage with relative imports:
-three-body, the rocket, falcon9, the landing Monte Carlo, the drone and
-the cube-sat."""
+"""Example models of the port, each a subpackage with relative imports: the
+counterparts of the JAX package's ``examples/`` directories (a dash in a
+directory's name is an underscore here)."""

@@ -29,6 +29,8 @@ def _snapshot_bitwise(tworld, jworld):
     jmeta, jcols = jworld.snapshot()
     assert tmeta.comp_entities == jmeta.comp_entities
     assert tmeta.entity_names == jmeta.entity_names
+    assert {n: m.metadata for n, m in tmeta.components.items()} == {
+        n: m.metadata for n, m in jmeta.components.items()}
     assert tcols.keys() == jcols.keys()
     for name, ref in jcols.items():
         assert tcols[name].dtype == ref.dtype, name

@@ -757,3 +757,79 @@ def test_core_example_on_the_card_matches_its_cpu(cuda):
             assert rel_err(runs["cuda"][name], ref) <= 1e-9, name
         else:
             np.testing.assert_array_equal(runs["cuda"][name], ref, err_msg=name)
+
+
+def _flight_example(name):
+    """(world, system, rate) of one of the last four core-API examples."""
+    from elodin_tpu_torch.examples.crazyflie_edu import sim as cf
+    from elodin_tpu_torch.examples.frames import main as fr
+    from elodin_tpu_torch.examples.rc_jet import sim as rj
+    from elodin_tpu_torch.examples.rocket_barrowman import main as rb
+
+    return {"frames-two-body": lambda: (*fr.build_two_body(), fr.SIM_RATE),
+            "rocket-barrowman": lambda: (rb.world(), rb.system(), 1.0 / rb.SIM_TIME_STEP),
+            "crazyflie-edu": lambda: (cf.world(), cf.system(), cf.SIM_RATE_HZ),
+            "rc-jet": lambda: (rj.world(), rj.system(), rj.SIM_RATE_HZ)}[name]()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["frames-two-body", "rocket-barrowman", "crazyflie-edu",
+                                  "rc-jet"])
+def test_flight_example_on_the_card_matches_its_cpu(cuda, name):
+    """120 ticks in f64 through ``World.build`` → ``Exec.run``, card
+    against CPU at 1e-9 per channel group."""
+    from elodin_tpu_torch import _config
+    from elodin_tpu_torch.interop import columns_to_numpy
+
+    prev = _config._FLOAT_POLICY
+    _config.set_float_policy("f64")
+    try:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            world, system, rate = _flight_example(name)
+            exec_ = world.build(system, simulation_rate=rate, device=device)
+            exec_.run(120)
+            runs[device] = columns_to_numpy(exec_.cols, exec_.meta)
+    finally:
+        _config.set_float_policy(prev)
+    for col, ref in runs["cpu"].items():
+        if ref.dtype.kind == "f":
+            assert np.isfinite(runs["cuda"][col]).all(), col
+            assert rel_err(runs["cuda"][col], ref) <= 1e-9, col
+        else:
+            np.testing.assert_array_equal(runs["cuda"][col], ref, err_msg=col)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["ENU", "NED"])
+def test_frames_drop_on_the_card(cuda, frame):
+    from elodin_tpu_torch import _config
+    from elodin_tpu_torch.examples.frames import main as fr
+
+    prev = _config._FLOAT_POLICY
+    _config.set_float_policy("f64")
+    try:
+        z = {d: fr.run_drop(frame, device=d) for d in ("cuda", "cpu")}
+    finally:
+        _config.set_float_policy(prev)
+    assert rel_err(z["cuda"], z["cpu"]) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_wmm_on_the_card_matches_its_cpu(cuda):
+    """``field_ned`` on a 32 x 32 grid (1024 points, both poles) at sea
+    level, card against CPU within 1e-12 of max |B|; the result stays on
+    the card, whose tables are copied there once."""
+    from elodin_tpu_torch import wmm
+
+    lat = torch.linspace(-np.pi / 2, np.pi / 2, 32, dtype=torch.float64)
+    lon = torch.linspace(-np.pi, np.pi, 33, dtype=torch.float64)[:-1]
+    grid_lat, grid_lon = (g.reshape(-1) for g in torch.meshgrid(lat, lon, indexing="ij"))
+    ours = wmm.field_ned(grid_lat.to(cuda), grid_lon.to(cuda), 0.0, 2022.5)
+    assert ours.device.type == "cuda" and ours.shape == (1024, 3)
+    assert wmm._tables(ours.device) is wmm._tables(ours.device)
+    ref = wmm.field_ned(grid_lat, grid_lon, 0.0, 2022.5)
+    assert rel_err(ours, ref) <= 1e-12
+    for o, r in zip(wmm.declination_inclination(grid_lat.to(cuda), grid_lon.to(cuda), 0.0),
+                    wmm.declination_inclination(grid_lat, grid_lon, 0.0)):
+        assert rel_err(o, r) <= 1e-12

@@ -86,6 +86,15 @@ PORT_MODULES = [
     "elodin_tpu_torch.examples.apollo_lander.main",
     "elodin_tpu_torch.examples.n_body.main",
     "elodin_tpu_torch.examples.n_body.batched",
+    "elodin_tpu_torch.wmm",
+    "elodin_tpu_torch.examples.frames.main",
+    "elodin_tpu_torch.examples.rocket_barrowman.barrowman",
+    "elodin_tpu_torch.examples.rocket_barrowman.main",
+    "elodin_tpu_torch.examples.crazyflie_edu.config",
+    "elodin_tpu_torch.examples.crazyflie_edu.sim",
+    "elodin_tpu_torch.examples.crazyflie_edu.main",
+    "elodin_tpu_torch.examples.rc_jet.sim",
+    "elodin_tpu_torch.examples.rc_jet.main",
 ]
 
 
