@@ -205,9 +205,10 @@ timed figure of phases 29-30 is taken 2 times (median and spread; 3
 until phases 32-34 took their time):
 
 28. the CLI on the card: ``python -m elodin_tpu_torch.examples.drone.main
-    bench --ticks 300`` and ``python -m
-    elodin_tpu_torch.examples.cube_sat.main bench --ticks 240``, 1 child
-    each (3 until phases 32-34 took their time): the printed tick time and
+    bench --ticks 150`` and ``python -m
+    elodin_tpu_torch.examples.cube_sat.main bench --ticks 120`` (300 and
+    240 until phase 39 took its time), 1 child each (3 until phases 32-34
+    took their time): the printed tick time and
     RTF beside phase 21's in-process RTF;
     each child's wall split into the interpreter's start, the torch and
     port import and the CUDA initialisation (one probe child) and the
@@ -251,8 +252,10 @@ against CPU at ``GRAD_TOL`` (1e-9, max |Δ| / max |ref|) unless named:
     card and on the CPU, its loss, gradient and iterate held card
     against CPU, ms per value-and-grad and step, the peak card memory
     above what was allocated before it; one step with 8 remat segments
-    on the card, held against plain (value rtol 1e-12, gradient 1e-9;
-    bitwise printed), its ms and peak memory; the device
+    on the card, cut to 88 ticks (``ORBIT_REMAT_TICKS``; 504 until phase
+    39 took its time), held against a plain step at that depth (value
+    rtol 1e-12, gradient 1e-9; bitwise printed), the ms and peak memory
+    of each; the device
     trace of one value-and-grad cut to 16 ticks (device ops a tick,
     forward and backward, idle share).
 33. neural-hover (``examples.neural_hover``) at its full width and
@@ -368,7 +371,32 @@ just before and read just after, the phase launches neither kernel):
     a call (CUDA events after a warm call), points/s, device ops a call,
     idle share, peak card memory; every 4th point held to the CPU within
     1e-12 of max |B|; one point's ms and device ops.
-39. a JSON line of the kernels (time, plain version's time and bound at
+The telemetry database on the card (``elodin_tpu_torch.db``; with both
+launch counts set to 0 just before and read just after each run, the
+served n-body run launches K2 once a tick, (b) and (c) neither kernel):
+
+39. (a) n-body at 1024 bodies on K2, f64 (``build_nbody(1024, seed=2)``,
+    ~5.1k stores, one an (entity, component)), built with ``db_path``,
+    served by ``serve_exec`` on a free port, ``Exec.run(100)``: 100 K2
+    launches and no K1 launch; a port ``Client`` reads every body's ``world_pos`` and
+    ``world_vel`` series, 101 rows each, bitwise the ``Exec``'s history
+    (``state_at``, ``history_frame``) with the timestamps the tap
+    computes, and again from the database reopened from disk; ms/tick
+    served and the same run without a server (history on in both, run to
+    flush), rows a second stored, the pump's stalls, the writer's time for
+    the run's one tap batch (``commit_hist``), a ``time_series`` round trip, device ops a tick
+    and idle share of 10 served ticks.  (b) the three-body example
+    through ``python -m elodin_tpu_torch run`` in process on the card,
+    served on a free port into ``ELODIN_DB_PATH`` for 120 ticks, a client
+    on a real-time stream receiving rows meanwhile; then with
+    ``ELODIN_RESUME=1`` to tick 240: the database's latest rows against
+    one uninterrupted ``Exec.run(240)`` on the card within 1e-12 (max
+    |Δ| / max |ref| per column; bitwise expected), the tick 240; ``db
+    export`` to CSV, a row a stored row.  (c) the JAX test's
+    external-control world on the card: a client's ``wire_thrust`` write
+    reaches the ``Exec`` from the server's thread and the next tick's
+    ``wire_vel`` on the card shows it.
+40. a JSON line of the kernels (time, plain version's time and bound at
     the main path's width, launches on the main path; no PyTorch call
     computes either function, so ``library_ms`` is null; under
     ``sharded``, phase 35's launches, times and bound of the sharded
@@ -378,16 +406,18 @@ just before and read just after, the phase launches neither kernel):
     rank's time, the bound of its rows' work, its errors and, with 4
     cards, the four nccl ranks' time; under ``core_api``, phase 37's
     launches and K2's runner figures; under ``flight_examples``, phase
-    38's launches), then the last line
+    38's launches; under ``telemetry_db``, phase 39's), then the last line
     ``{"ok": true, "device": {...}}``.
 """
 
 import cProfile
+import gc
 import json
 import math
 import multiprocessing
 import os
 import pstats
+import resource
 import statistics
 import subprocess
 import sys
@@ -453,7 +483,7 @@ MC_SAMPLES, MC_TICKS, MC_CPU_SAMPLES, MC_FRAC_SLACK = 10000, 2400, 64, 5
 # 600 -> 150; phase 28 runs the drone and the cube-sat through the CLI at
 # 300 and 240 ticks)
 RTF_TICKS = {"drone": 60, "cube-sat": 60, "ball": 120, "stablehlo": 300, "linalg": 150}
-RTF_REPEATS = 2  # 3 until phases 32-34 took their time
+RTF_REPEATS = 1  # 3 until phases 32-34 took their time, 2 until phase 39 did
 RTF_WARMUP_TICKS = 30
 SINGLE_TRACE_TICKS = 10
 THREEFRY_COUNTERS, THREEFRY_CORNER_COUNTERS = 10**6, 1000
@@ -473,9 +503,10 @@ JAX_MC_LANDED_FRAC, JAX_MC_SOFT_FRAC = 0.9759, 0.9401
 REPO = os.path.dirname(os.path.abspath(__file__))
 REPEATS = 2  # of each timed figure of phases 29-30 (3 until phases 32-34 took their time)
 CLI_REPEATS = 1  # bench children an example in phase 28 (cut from 3 for phases 32-34)
-# phase 28: each CLI child (module, bench ticks), the examples' own sizes
-CLI_BENCH = {"drone": ("elodin_tpu_torch.examples.drone.main", 300),
-             "cube-sat": ("elodin_tpu_torch.examples.cube_sat.main", 240)}
+# phase 28: each CLI child (module, bench ticks), cut to half the examples'
+# own 300 and 240 when phase 39 took its time
+CLI_BENCH = {"drone": ("elodin_tpu_torch.examples.drone.main", 150),
+             "cube-sat": ("elodin_tpu_torch.examples.cube_sat.main", 120)}
 CHILD_TIMEOUT_S = 300
 # a child that imports torch and the port, initialises CUDA, runs the
 # drone's ``components`` as ``python -m`` would, and prints the seconds of
@@ -501,6 +532,8 @@ ORBIT_V0 = (0.1, 1.0, 0.05)  # the start of phase 32's finite difference
 # Adam steps of phase 32 (3 until phase 35 took its time) and 33 (2 until then)
 ORBIT_FD_TICKS, ORBIT_FD_EPS, ORBIT_ADAM_STEPS = 60, 1e-6, 1
 ORBIT_TRACE_TICKS = 16  # one gradient traced, cut in depth (~3500 device ops a tick)
+# the remat step against plain, cut in depth from 504 ticks (47 s on the card) for phase 39
+ORBIT_REMAT_TICKS = 88
 GRAD_TOL = 1e-9  # card against CPU, values, gradients and iterates
 HOVER_STEPS, HOVER_TRACE_TICKS = 1, 24
 PYSIM_CHUNK, PYSIM_CHUNKS = 30, 2
@@ -538,6 +571,13 @@ WMM_LON, WMM_LAT = 1440, 720  # a global 0.25 deg grid of cell centres at sea le
 WMM_YEAR, WMM_TOL = 2020.0, 1e-12
 WMM_CPU_STRIDE = 4  # every 4th grid point held to the CPU (~10 s for the whole grid there)
 WMM_CPU_CHUNK = 131072
+# phase 39: the telemetry database on the card
+DB_BODIES, DB_TICKS = 1024, 100  # ~5.1k stores: one a (body, component)
+DB_TRACE_TICKS = 10
+DB_RUN_TICKS = 120  # the three-body run's ticks, then as many again resumed
+DB_STREAM_ROWS = 10  # rows the real-time stream must deliver during the run
+DB_RESUME_TOL = 1e-12
+DB_WAIT_S = 30.0
 
 
 _START = time.perf_counter()
@@ -2108,18 +2148,22 @@ def _orbit_phase():
                 f"step, plain {_spread([r[3] for r in rows])} ms over {ORBIT_ADAM_STEPS} steps "
                 "(runs " + ", ".join(f"{r[3]:.6g}" for r in rows) + ")")
         if device == "cuda":
-            remat = orbit.make_loss(ticks, segs, device)
+            cut = orbit.make_loss(ORBIT_REMAT_TICKS, None, device)
+            prows, ppeak = _train_steps(lambda p: cut(p["v0"]), start, 1,
+                                        orbit.LEARNING_RATE, device)
+            remat = orbit.make_loss(ORBIT_REMAT_TICKS, segs, device)
             rrows, rpeak = _train_steps(lambda p: remat(p["v0"]), start, 1,
                                         orbit.LEARNING_RATE, device)
-            bitwise = rrows[0][0] == rows[0][0] and torch.equal(rrows[0][1]["v0"],
-                                                                rows[0][1]["v0"])
-            vrel = abs(rrows[0][0] - rows[0][0]) / abs(rows[0][0])
-            grel = ((rrows[0][1]["v0"] - rows[0][1]["v0"]).abs().max()
-                    / rows[0][1]["v0"].abs().max()).item()
-            line += (f"; remat ({segs} segments) {rrows[0][3]:.6g} ms; remat against plain: "
-                     f"value {vrel:.3e} (tol 1e-12), gradient {grel:.3e} (tol 1e-9), bitwise "
-                     f"{bitwise}; peak card memory above the columns: plain {_peak_mib(peak)}, "
-                     f"remat {_peak_mib(rpeak)}")
+            bitwise = rrows[0][0] == prows[0][0] and torch.equal(rrows[0][1]["v0"],
+                                                                 prows[0][1]["v0"])
+            vrel = abs(rrows[0][0] - prows[0][0]) / abs(prows[0][0])
+            grel = ((rrows[0][1]["v0"] - prows[0][1]["v0"]).abs().max()
+                    / prows[0][1]["v0"].abs().max()).item()
+            line += (f"; peak card memory above the columns {_peak_mib(peak)}; at "
+                     f"{ORBIT_REMAT_TICKS} ticks, plain {prows[0][3]:.6g} ms, remat ({segs} "
+                     f"segments) {rrows[0][3]:.6g} ms; remat against plain: value {vrel:.3e} "
+                     f"(tol 1e-12), gradient {grel:.3e} (tol 1e-9), bitwise {bitwise}; peak "
+                     f"card memory plain {_peak_mib(ppeak)}, remat {_peak_mib(rpeak)}")
             if not (vrel <= 1e-12 and grel <= 1e-9):
                 raise AssertionError("orbit-retarget on the card: remat differs from plain")
         print(line)
@@ -3021,16 +3065,19 @@ def _nbody_batched_phase():
     same runner on the dense edge fold.  Returns the kernels-line entry."""
     from elodin_tpu_torch.examples.n_body import batched
     from elodin_tpu_torch.ops import pairwise as pw
+    from elodin_tpu_torch.ops import sixdof_kernel as sk
 
     n, ticks = NBODY_BATCHED
     out = {}
     for dtype, tol in ((np.float32, 1e-4), (np.float64, 1e-12)):
         name = np.dtype(dtype).name
         stats = {}
-        pw.LAUNCHES = 0
+        sk.LAUNCHES = pw.LAUNCHES = 0
         res = batched.run(n, ticks, dtype=dtype, device="cuda", stats=stats)
         torch.cuda.synchronize()
         launches = pw.LAUNCHES
+        if sk.LAUNCHES:
+            raise AssertionError(f"n_body.batched {name}: K1 launched {sk.LAUNCHES} times")
         print(f"phase 37, n_body.batched.run({n}, {ticks}), {name}: {res}; K2 launches "
               f"{launches} in the call, {stats['launches']} in the timed pass")
         if launches != 2 * ticks or stats["launches"] != ticks:
@@ -3111,6 +3158,7 @@ def _core_phase(el, interop, kernels):
         entry["core_api"] = (
             {"path": "examples/n_body/batched.run(8192, 200): warm and timed pass, "
                      "launches counted over the call", **batched}
+            # K1's count, read after each call, raised on unless 0
             if entry["name"] == "pairwise_gravity" else {"launches": 0})
 
 
@@ -3310,6 +3358,386 @@ def _flight_phase(kernels):
         entry["flight_examples"] = {"launches": 0}
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _served_nbody(el, n, ticks, db_dir, device="cuda"):
+    """Phase 39 (a): n-body on K2 (``build_nbody(n, seed=2)``, f64) built
+    with ``db_path`` and served by ``serve_exec`` on a free port, then
+    ``Exec.run(ticks)``.  The launch count is set to 0 just before the run
+    and read just after.  A port ``Client`` reads every body's
+    ``world_pos`` and ``world_vel`` series, held bitwise to the history
+    the same ``Exec`` kept (``state_at`` and ``history_frame`` with it),
+    then the database reopens from disk with the same rows.  Returns the
+    figures printed.  ``device`` (here and in phase 39's other parts) is
+    the card but for a rehearsal on the CPU."""
+    import elodin_tpu_torch.db as edb
+    from elodin_tpu_torch.db.server import serve_exec
+    from elodin_tpu_torch.db.vtable import component_id_of
+    from elodin_tpu_torch.models import build_nbody, build_nbody_system
+    from elodin_tpu_torch.ops import pairwise as pw
+    from elodin_tpu_torch.ops import sixdof_kernel as sk
+    from elodin_tpu_torch.tick_metrics import TickMetrics
+
+    def build(db_path):
+        el.set_float_policy("f64")
+        return build_nbody(n, seed=2).build(
+            build_nbody_system(NBODY_DT, use_kernel=True), device=device,
+            simulation_rate=1.0 / NBODY_DT, db_path=db_path)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    out = {}
+    # the same run without a server, history on
+    plain = build(None)
+    sync()
+    t0 = time.perf_counter()
+    plain.run(ticks)
+    plain.flush_telemetry()
+    sync()
+    out["plain_ms_per_tick"] = (time.perf_counter() - t0) * 1e3 / ticks
+    del plain
+
+    exec_ = build(db_dir)
+    exec_.commit_hist = TickMetrics().hist["commit"]
+    t0 = time.perf_counter()
+    server = serve_exec(exec_, "127.0.0.1:0")
+    out["serve_setup_s"] = time.perf_counter() - t0
+    try:
+        stores = len(server.db.components)
+        sync()
+        sk.LAUNCHES = pw.LAUNCHES = 0
+        t0 = time.perf_counter()
+        exec_.run(ticks)
+        sync()
+        run_s = time.perf_counter() - t0
+        out["launches"] = {"sixdof_rk4": sk.LAUNCHES, "pairwise_gravity": pw.LAUNCHES}
+        if out["launches"]["sixdof_rk4"]:
+            raise AssertionError(f"phase 39 (a): K1 launched in the served n-body run: "
+                                 f"{out['launches']}")
+        exec_.flush_telemetry()
+        stored_s = time.perf_counter() - t0
+        out["served_run_ms_per_tick"] = run_s * 1e3 / ticks
+        out["served_ms_per_tick"] = stored_s * 1e3 / ticks
+        out["stores"] = stores
+        out["rows_per_s"] = ticks * stores / stored_s
+        out["stalls"] = exec_._pump.stalls
+        hist = exec_.commit_hist
+        out["commit_batches"] = hist.count
+        out["commit_ms"] = hist.max_us / 1e3
+
+        names = [q for q in exec_._history.column_names()
+                 if q.endswith((".world_pos", ".world_vel"))]
+        if len(names) != 2 * n:
+            raise AssertionError(f"phase 39 (a): {len(names)} series, expected {2 * n}")
+        series = {c: exec_._history.series(c) for c in ("world_pos", "world_vel")}
+        start = exec_._history.start_timestamp.timestamp()
+        times = np.asarray(exec_._history.times)
+        want_ts = np.concatenate([[int(start * 1e6)],
+                                  ((start + times[1:]) * 1e6).astype(np.int64)])
+        client = edb.Client.connect(f"127.0.0.1:{server.port}")
+        try:
+            rt = []
+            read = {}
+            for q in names:
+                t1 = time.perf_counter()
+                ts, vals = client.time_series(q)
+                rt.append(time.perf_counter() - t1)
+                comp, row = exec_._history.resolve(q)
+                if len(ts) != ticks + 1:
+                    raise AssertionError(f"phase 39 (a): {q} has {len(ts)} rows, "
+                                         f"expected {ticks + 1}")
+                if not np.array_equal(ts, want_ts):
+                    raise AssertionError(f"phase 39 (a): {q} timestamps differ")
+                if not np.array_equal(np.asarray(vals).reshape(ticks + 1, -1),
+                                      series[comp][:, row]):
+                    raise AssertionError(f"phase 39 (a): {q} is not bitwise the history")
+                read[q] = (ts, np.asarray(vals).reshape(ticks + 1, -1))
+        finally:
+            client.close()
+        out["time_series_ms"] = statistics.median(rt) * 1e3
+        last = exec_.state_at(ticks)
+        frame = exec_.history_frame(names[0])
+        comp0, row0 = exec_._history.resolve(names[0])
+        if not (np.array_equal(np.asarray(frame[names[0]]), read[names[0]][1])
+                and all(np.array_equal(last[c][row], read[q][1][-1])
+                        for q in names for c, row in [exec_._history.resolve(q)])):
+            raise AssertionError("phase 39 (a): the client's rows differ from "
+                                 "state_at / history_frame")
+        ops, busy, wall = _device_trace(lambda: exec_.run(DB_TRACE_TICKS))
+        out["ops_per_tick"] = ops / DB_TRACE_TICKS
+        out["idle_share"] = 1.0 - busy / wall if ops else math.nan
+        if not all(np.isfinite(v[1]).all() for v in read.values()):
+            raise AssertionError("phase 39 (a): non-finite rows")
+    finally:
+        server.stop()
+    # the served database's stores hold two files open each: close them
+    # before the reopen opens as many again
+    exec_.on_commit_batch = None
+    del exec_, server
+    gc.collect()
+    db = edb.Database(db_dir)
+    for q, (ts, vals) in read.items():
+        store = db.components.get(component_id_of(q))
+        if (store is None or store.len < ticks + 1
+                or not np.array_equal(store.timestamps[:ticks + 1], ts)
+                or not np.array_equal(store.values[:ticks + 1], vals)):
+            raise AssertionError(f"phase 39 (a): {q} differs after the reopen")
+    return out
+
+
+def _stream_rows(addr, names, rows, state, stop):
+    """A client on a real-time stream of ``names`` at ``addr`` (retried
+    until the server listens and holds them), appending every row it
+    receives to ``rows`` until the stream is closed
+    (``state["stream"].close()``, from the caller's thread) or ``stop`` is
+    set."""
+    import elodin_tpu_torch.db as edb
+
+    deadline = time.perf_counter() + DB_WAIT_S
+    while True:
+        try:
+            client = edb.Client.connect(addr)
+            break
+        except OSError:
+            if time.perf_counter() > deadline or stop.is_set():
+                return
+            time.sleep(0.01)
+    try:
+        # the server listens before serve_exec has made the stores, and the
+        # stream names the rows it receives from the components it knows
+        while not set(names) <= set(client.components()):
+            if time.perf_counter() > deadline or stop.is_set():
+                return
+            time.sleep(0.01)
+        state["stream"] = stream = client.stream(names)
+        if stop.is_set():  # the run ended before the stream was made
+            stream.close()
+        for row in stream:
+            rows.append(row)
+    finally:
+        client.close()
+
+
+def _db_run_resume(el, db_dir, csv_dir, device="cuda"):
+    """Phase 39 (b): the three-body example through ``python -m
+    elodin_tpu_torch run`` in process on the card, served on a free port
+    into ``db_dir`` (``ELODIN_DB_PATH``, ``ELODIN_MAX_TICKS``), with a
+    client on a real-time stream; then again with ``ELODIN_RESUME=1`` to
+    twice the ticks.  The resumed run's final rows must agree with one
+    uninterrupted ``Exec.run`` on the card; then ``db export`` to CSV."""
+    import threading
+
+    from elodin_tpu_torch import __main__ as cli
+    from elodin_tpu_torch.db.__main__ import main as db_main
+    from elodin_tpu_torch.db.storage import Database
+    from elodin_tpu_torch.db.vtable import component_id_of, store_name
+    from elodin_tpu_torch.examples.three_body import main as tb
+    from elodin_tpu_torch.interop import columns_to_numpy
+
+    el.set_float_policy("f64")
+    module = "elodin_tpu_torch.examples.three_body.main"
+    env = {"ELODIN_DB_PATH": db_dir, "ELODIN_MAX_TICKS": str(DB_RUN_TICKS)}
+    saved = {k: os.environ.get(k) for k in (*env, "ELODIN_RESUME")}
+    argv = sys.argv
+    out = {}
+    try:
+        os.environ.update(env)
+        addr = f"127.0.0.1:{_free_port()}"
+        rows, state, stop = [], {}, threading.Event()
+        reader = threading.Thread(target=_stream_rows, args=(
+            addr, ["a.world_pos", "b.world_pos", "c.world_pos"], rows, state, stop),
+            daemon=True)
+        reader.start()
+        t0 = time.perf_counter()
+        try:
+            cli.main(["run", module, addr, "--device", device])
+        finally:
+            stop.set()
+            if "stream" in state:
+                state["stream"].close()
+            reader.join(timeout=DB_WAIT_S)
+        out["run_s"] = time.perf_counter() - t0
+        out["stream_rows"] = len(rows)
+        if reader.is_alive() or len(rows) < DB_STREAM_ROWS:
+            raise AssertionError(f"phase 39 (b): the real-time stream received {len(rows)} "
+                                 f"rows during the run, expected >= {DB_STREAM_ROWS}")
+        if not all(np.isfinite(np.asarray(r[k], dtype=np.float64)).all()
+                   for r in rows for k in r.keys()):
+            raise AssertionError("phase 39 (b): non-finite streamed rows")
+
+        os.environ["ELODIN_RESUME"] = "1"
+        os.environ["ELODIN_MAX_TICKS"] = str(2 * DB_RUN_TICKS)
+        t0 = time.perf_counter()
+        cli.main(["run", module, f"127.0.0.1:{_free_port()}", "--device", device])
+        out["resume_s"] = time.perf_counter() - t0
+    finally:
+        sys.argv = argv
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    ref = tb.build_world().build(tb.build_system(), simulation_rate=1.0 / tb.SIM_TIME_STEP,
+                                 device=device)
+    ref.run(2 * DB_RUN_TICKS)
+    want = columns_to_numpy(ref.cols, ref.meta)
+    db = Database(db_dir)
+    worst = 0.0
+    for comp, ids in ref.meta.comp_entities.items():
+        quals = [store_name(ref.meta, comp, eid) for eid in ids]
+        got = np.stack([db.components[component_id_of(q)].latest()[1]
+                        for q in quals]).reshape(want[comp].shape)
+        ref_col = want[comp]
+        if ref_col.dtype.kind != "f":
+            if not np.array_equal(got.astype(ref_col.dtype), ref_col):
+                raise AssertionError(f"phase 39 (b): resumed {comp} differs")
+            continue
+        scale = float(np.max(np.abs(ref_col))) or 1.0
+        worst = max(worst, float(np.max(np.abs(got - ref_col))) / scale)
+    out["resume_rel_err"] = worst
+    if worst > DB_RESUME_TOL:
+        raise AssertionError(f"phase 39 (b): resumed run max|Δ|/max|ref| {worst:.3e} "
+                             f"> {DB_RESUME_TOL}")
+    tick = db.components[component_id_of("Globals.tick")].latest()[1]
+    if int(np.asarray(tick).reshape(-1)[0]) != 2 * DB_RUN_TICKS:
+        raise AssertionError(f"phase 39 (b): resumed run ended at tick {tick}")
+    out["rows"] = db.components[component_id_of("a.world_pos")].len
+    db_main(["export", db_dir, "--output", csv_dir, "--format", "csv"])
+    with open(os.path.join(csv_dir, "a.world_pos.csv")) as f:
+        out["csv_rows"] = sum(1 for _ in f) - 1
+    if out["csv_rows"] != out["rows"]:
+        raise AssertionError(f"phase 39 (b): the CSV holds {out['csv_rows']} rows of "
+                             f"{out['rows']}")
+    return out
+
+
+def _wire_world(el):
+    """The JAX test's external-control world (``tests/test_db.py``,
+    ``test_external_control_over_wire``) on the port: ``wire_thrust``,
+    written from outside, integrated into ``wire_vel`` every tick."""
+    import typing as ty
+    from dataclasses import dataclass, field
+
+    Thrust = ty.Annotated[torch.Tensor, el.Component(
+        "wire_thrust", el.ComponentType(el.PrimitiveType.F64, ()),
+        metadata={"external_control": "true"})]
+    Vel = ty.Annotated[torch.Tensor, el.Component(
+        "wire_vel", el.ComponentType(el.PrimitiveType.F64, ()))]
+
+    @dataclass
+    class Craft(el.Archetype):
+        wire_thrust: Thrust = field(default_factory=lambda: np.float64(0.0))
+        wire_vel: Vel = field(default_factory=lambda: np.float64(0.0))
+
+    @el.system
+    def integrate(q: el.Query[Thrust, Vel]) -> el.Query[Vel]:
+        return q.map(Vel, lambda t, v: v + t)
+
+    w = el.World()
+    w.spawn(Craft(), "craft")
+    return w, integrate
+
+
+def _db_external_control(el, db_dir, device="cuda"):
+    """Phase 39 (c): a client writes the external-control ``wire_thrust``
+    over the wire while the ``Exec`` on the card is served; the write is
+    applied before the next tick, whose state on the card shows it."""
+    import elodin_tpu_torch.db as edb
+    from elodin_tpu_torch.db.server import serve_exec
+
+    el.set_float_policy("f64")
+    w, system = _wire_world(el)
+    exec_ = w.build(system, db_path=db_dir, device=device)
+    server = serve_exec(exec_, "127.0.0.1:0")
+    try:
+        exec_.run(3)
+        client = edb.Client.connect(f"127.0.0.1:{server.port}")
+        writer = client.table_writer({"craft.wire_thrust": edb.f64})
+        t0 = time.perf_counter()
+        writer.write(timestamp_us=10, values={"craft.wire_thrust": 2.5})
+        while float(exec_.read_component("craft.wire_thrust")[0]) != 2.5:
+            if time.perf_counter() - t0 > DB_WAIT_S:
+                raise AssertionError("phase 39 (c): the write never reached the Exec")
+            time.sleep(0.001)
+        seen_ms = (time.perf_counter() - t0) * 1e3
+        exec_.run(1)
+        after_one = float(exec_.column_array("wire_vel")[0])
+        exec_.run(3)
+        after_four = float(exec_.column_array("wire_vel")[0])
+        writer.close()
+        client.close()
+    finally:
+        server.stop()
+    if exec_.cols["wire_vel"].device.type != device or (after_one, after_four) != (2.5, 10.0):
+        raise AssertionError(f"phase 39 (c): wire_vel {after_one}, {after_four} on "
+                             f"{exec_.cols['wire_vel'].device}, expected 2.5, 10.0 on the card")
+    return {"write_seen_ms": seen_ms}
+
+
+def _db_phase(kernels):
+    """Phase 39: the telemetry database fed from the card.  Adds the
+    served run's K1 and K2 launches (``telemetry_db``) to the kernels line."""
+    import shutil
+    import tempfile
+
+    import elodin_tpu_torch as el
+
+    t0 = time.perf_counter()
+    # two files open a store, ~5.1k stores, and the reopen as many again
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    want = 4 * 5 * DB_BODIES + 1024
+    if soft < want:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard if hard < want else want, hard))
+    print(f"phase 39: open files {resource.getrlimit(resource.RLIMIT_NOFILE)} (was {soft})")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-db-", dir=os.path.join(REPO, "build"))
+    try:
+        a = _served_nbody(el, DB_BODIES, DB_TICKS, os.path.join(tmp, "nbody"))
+        if a["launches"]["pairwise_gravity"] != DB_TICKS:
+            raise AssertionError(f"phase 39 (a): K2 launched {a['launches']} times in "
+                                 f"Exec.run({DB_TICKS}), expected {DB_TICKS}")
+        print(f"phase 39 (a), n-body {DB_BODIES} bodies on K2 served, f64: launches "
+              f"{a['launches']} in Exec.run({DB_TICKS}); {a['stores']} stores set up in "
+              f"{a['serve_setup_s']:.3f} s; {a['served_ms_per_tick']:.4g} ms/tick served "
+              f"(run to flush; {a['served_run_ms_per_tick']:.4g} the run alone), "
+              f"{a['plain_ms_per_tick']:.4g} ms/tick without a server (run to flush, history "
+              f"on in both); {a['rows_per_s']:.6g} rows/s stored (run to flush); pump stalls "
+              f"{a['stalls']}; writer time for the run's {a['commit_batches']} batch of "
+              f"{DB_TICKS} commits (commit_hist) {a['commit_ms']:.4g} ms; client "
+              f"time_series round trip {a['time_series_ms']:.4g} ms (median of "
+              f"{2 * DB_BODIES}); {2 * DB_BODIES} series of {DB_TICKS + 1} rows bitwise the "
+              f"history, and again after the reopen; device trace of {DB_TRACE_TICKS} "
+              f"served ticks: {a['ops_per_tick']:.1f} device ops/tick, idle share "
+              f"{100 * a['idle_share']:.2f}%")
+        b = _no_launches("phase 39 (b), three-body through run and resume", lambda: _db_run_resume(
+            el, os.path.join(tmp, "three_body"), os.path.join(tmp, "csv")))
+        print(f"phase 39 (b), three-body through `run` on the card: {DB_RUN_TICKS} ticks in "
+              f"{b['run_s']:.2f} s (paced at 120 Hz), {b['stream_rows']} rows on the "
+              f"real-time stream; resumed to tick {2 * DB_RUN_TICKS} in {b['resume_s']:.2f} s, "
+              f"final rows vs one uninterrupted Exec.run max|Δ|/max|ref| "
+              f"{b['resume_rel_err']:.3e} (tol {DB_RESUME_TOL}); CSV export {b['csv_rows']} "
+              f"rows of a.world_pos")
+        c = _no_launches("phase 39 (c), external control",
+                         lambda: _db_external_control(el, os.path.join(tmp, "wire")))
+        print(f"phase 39 (c), external control on the card: the client's write reached the "
+              f"Exec in {c['write_seen_ms']:.3g} ms; wire_vel 2.5 after the next tick, 10.0 "
+              f"after 4")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 39: {time.perf_counter() - t0:.1f} s")
+    for entry in kernels:
+        entry["telemetry_db"] = {"launches": a["launches"][entry["name"]]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3379,12 +3807,14 @@ def main() -> int:
     _clock("phase 37")
     _flight_phase(kernels)
     _clock("phase 38")
+    _db_phase(kernels)
+    _clock("phase 39")
 
     if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
            for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
 
-    # 39. results
+    # 40. results
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -182,10 +182,7 @@ class World(WorldBuilder):
         ``device``.  The parameters before it are the JAX package's, in its
         order; ``generate_real_time``, ``default_playback_speed``,
         ``optimize`` and ``backend`` are accepted and ignored, as there.
-        ``db_path`` needs the telemetry database, which is not ported."""
-        if db_path is not None:
-            raise NotImplementedError("World.build(db_path=...): the telemetry "
-                                      "database is not ported (ROADMAP.md §1 item 6)")
+        ``db_path`` is the telemetry database's directory (``Exec``)."""
         self.set_sim_time_step(1.0 / simulation_rate)
         meta, cols = self.snapshot()
         exec_ = Exec(
@@ -195,6 +192,7 @@ class World(WorldBuilder):
             sim_time_step=1.0 / simulation_rate,
             max_ticks=max_ticks,
             telemetry_rate=telemetry_rate,
+            db_path=db_path,
             device=device,
         )
         exec_.schematic_content = self.schematic_content

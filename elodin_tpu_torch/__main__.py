@@ -5,14 +5,15 @@ Usage:
     python -m elodin_tpu_torch run <target> [sim args...]
     python -m elodin_tpu_torch bench <target> [--ticks N] [--device DEV]
     python -m elodin_tpu_torch components <target>
+    python -m elodin_tpu_torch db ...          (the telemetry database's CLI)
     python -m elodin_tpu_torch monte-carlo run <sim.py> --campaign c.toml --out DIR
         [--workers N] [--max-ticks N] [--resume] [--device DEV]
 
 A target is a sim file (``path/to/main.py``) or, since the port's examples
 are package modules with relative imports, a dotted module name
 (``elodin_tpu_torch.examples.drone.main``); either runs as ``__main__``
-with the sim args as its ``sys.argv``.  ``db``, ``editor`` and
-``render-server`` need the telemetry database, which is not ported.
+with the sim args as its ``sys.argv``.  ``editor`` and ``render-server``
+are not ported (ROADMAP.md §1 item 8).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import os
 import runpy
 import sys
 
-_NOT_PORTED = ("db", "editor", "render-server")
+_NOT_PORTED = ("editor", "render-server")
 
 
 def _run_sim(target: str, extra: list[str]) -> None:
@@ -53,10 +54,14 @@ def main(argv=None) -> None:
         _run_sim(rest[0], ["bench"] + rest[1:])
     elif cmd == "components":
         _run_sim(rest[0], ["components"])
+    elif cmd == "db":
+        from .db.__main__ import main as db_main
+
+        db_main(rest)
     elif cmd == "monte-carlo":
         _monte_carlo(rest)
     elif cmd in _NOT_PORTED:
-        print(f"{cmd} needs the telemetry database, not ported", file=sys.stderr)
+        print(f"{cmd} is not ported (ROADMAP.md §1 item 8)", file=sys.stderr)
         sys.exit(2)
     else:
         raise SystemExit(f"unknown subcommand {cmd!r}\n{__doc__}")

@@ -7,10 +7,13 @@ Every sim built on this package is also a CLI: ``python main.py bench
 with its host callbacks, tick metrics and real-time pacing.
 
 ``run`` and ``bench`` take ``--device`` (the sim's ``World.run(device=)``
-when not given, ``"cuda"`` by default).  The telemetry server and database
-are not ported: ``run`` says so on stderr and steps headless, and a
-database path (``db_path``, ``ELODIN_DB_PATH``) or ``ELODIN_RESUME=1``
-raises ``NotImplementedError``.  ``bench --profile`` writes
+when not given, ``"cuda"`` by default).  ``run`` serves the telemetry
+database on its address (``db.server.serve_exec``; if the server cannot
+start it warns and steps headless), into ``db_path`` or
+``ELODIN_DB_PATH`` when given, where it also captures the sim's sources;
+``ELODIN_RESUME=1`` resumes from that database's latest rows, and
+``ELODIN_KEEP_ALIVE=1`` keeps serving after the last tick.
+``bench --profile`` writes
 ``profile-metrics.json`` and the ``torch.profiler`` table of one tick,
 ``step.torch_profile.txt``, into ``profile_output/`` beside the sim.
 """
@@ -143,15 +146,14 @@ def run_cli(world, system, simulation_rate=120.0, generate_real_time=False,
         max_ticks = int(env_max) if max_ticks is None else min(max_ticks, int(env_max))
 
     db_path = db_path or os.environ.get("ELODIN_DB_PATH")
-    if db_path or os.environ.get("ELODIN_RESUME", "0") == "1":
-        raise NotImplementedError(
-            "run with a telemetry database (db_path, ELODIN_DB_PATH, "
-            "ELODIN_RESUME): the telemetry database is not ported")
+    if db_path:
+        _capture_simulation_source(db_path)
     exec_ = world.build(
         system,
         simulation_rate=simulation_rate,
         telemetry_rate=telemetry_rate,
         max_ticks=max_ticks,
+        db_path=db_path,
         device=device,
     )
 
@@ -162,15 +164,28 @@ def run_cli(world, system, simulation_rate=120.0, generate_real_time=False,
     metrics = TickMetrics()
     exec_.commit_hist = metrics.hist["commit"]
     liveness = Liveness(args.liveness_port)
-    # the JAX package serves telemetry on args.addr here; without a server
-    # it steps headless, as this port always does
-    print(f"note: the telemetry server is not ported; running headless "
-          f"(not serving {args.addr})", file=sys.stderr)
     dt = 1.0 / simulation_rate
     tick = 0
     paced_ticks = 0
     behind_deadline = 0  # paced cycles that missed their deadline
     wall_start = time.perf_counter()
+    server = None
+    try:
+        from .db.server import serve_exec
+
+        # ELODIN_RESUME=1: the database is the checkpoint; its latest rows
+        # are copied back into the device state before the first tick
+        resume = os.environ.get("ELODIN_RESUME", "0") == "1"
+        server = serve_exec(exec_, args.addr, resume=resume)
+    except Exception as e:  # noqa: BLE001
+        # keep simulating headless, but never silently
+        print(f"warning: telemetry server failed to start on {args.addr}: "
+              f"{e}; running headless", file=sys.stderr)
+    if server is not None and server.port is None:
+        # the listener did not bind (a port in use, a bad address): the
+        # database still records, but nothing is served
+        print(f"warning: telemetry server could not listen on {args.addr}; "
+              f"running headless", file=sys.stderr)
     try:
         try:
             while max_ticks is None or tick < max_ticks:
@@ -195,12 +210,19 @@ def run_cli(world, system, simulation_rate=120.0, generate_real_time=False,
                             time.sleep(dt - elapsed)
                         else:
                             behind_deadline += 1
+            # the reference sim keeps serving after max_ticks; opt in with
+            # ELODIN_KEEP_ALIVE so scripted runs still end
+            if server is not None and os.environ.get("ELODIN_KEEP_ALIVE", "0") == "1":
+                while True:
+                    time.sleep(0.5)
         except KeyboardInterrupt:
             pass
         # a writer-thread error is raised here, never swallowed
         exec_.flush_telemetry()
     finally:
         liveness.stop()
+        if server is not None:
+            server.stop()
         metrics.print_summary()
         wall = time.perf_counter() - wall_start
         metrics.write_summary_json(
@@ -253,3 +275,72 @@ def _write_profile(exec_, ticks: int, profile: dict) -> None:
     sort_by = "cuda_time_total" if on_card else "cpu_time_total"
     (out_dir / "step.torch_profile.txt").write_text(
         prof.key_averages().table(sort_by=sort_by, row_limit=50) + "\n")
+
+
+def _capture_simulation_source(db_path: str) -> None:
+    """Snapshot the sim's project .py sources into the DB
+    (python/elodin/__init__.py:116-157): entrypoint + any loaded module under
+    the project root, with a sha256 manifest (the JAX package's
+    ``cli._capture_simulation_source``)."""
+    import datetime
+    import hashlib
+    import pathlib
+    import shutil
+
+    entry = pathlib.Path(sys.argv[0]).resolve()
+    if entry.suffix != ".py" or not entry.exists():
+        return
+    project_root = entry.parent
+    sources = {entry}
+    for mod in list(sys.modules.values()):
+        f = getattr(mod, "__file__", None)
+        if not f or not f.endswith(".py"):
+            continue
+        p = pathlib.Path(f)
+        try:
+            p = p.resolve()
+        except OSError:
+            continue
+        if not p.exists():
+            continue
+        try:
+            p.relative_to(project_root)
+        except ValueError:
+            continue
+        if "__pycache__" in p.parts or "site-packages" in str(p):
+            continue
+        sources.add(p)
+
+    source_root = pathlib.Path(db_path) / "simulation_source"
+    files_root = source_root / "files"
+    manifest_files = []
+    for src_path in sorted(sources):
+        rel = src_path.relative_to(project_root)
+        dest = files_root / rel
+        dest.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy2(src_path, dest)
+        data = src_path.read_bytes()
+        manifest_files.append(
+            {
+                "path": rel.as_posix(),
+                "sha256": hashlib.sha256(data).hexdigest(),
+                "size": len(data),
+            }
+        )
+    source_root.mkdir(parents=True, exist_ok=True)
+    (source_root / "manifest.json").write_text(
+        json.dumps(
+            {
+                "version": 1,
+                "entrypoint": entry.name,
+                "project_root": str(project_root),
+                "captured_at": datetime.datetime.now(
+                    datetime.timezone.utc
+                ).isoformat(),
+                "files": manifest_files,
+            },
+            indent=2,
+            sort_keys=True,
+        )
+        + "\n"
+    )

@@ -12,8 +12,13 @@ pump, a writer thread that copies them to the host and appends them to
 host copy of the sent values per exchange.  The history is the checkpoint:
 ``state_at`` reads a recorded row, ``restore`` rewinds the device state to
 it and cuts the history after it; ``save_checkpoint`` / ``load_checkpoint``
-write and read the live state as an npz file.  Not ported yet:
-``restore_from_db`` (it needs the telemetry database).
+write and read the live state as an npz file.  With ``db_path`` the
+history spools under that directory, and ``db.server.serve_exec`` sets
+``on_commit_batch``, the tap through which the writer thread hands every
+commit to the telemetry database; ``restore_from_db`` resumes from that
+database.  ``write_component`` from another thread than the step loop's
+(the database server's, for an ``external_control`` component) is held as
+host numpy and applied before the next tick.
 
 ``device`` may be a mesh across processes (``parallel.make_mesh()`` after
 ``init_multihost``, one device a process): the columns are placed as
@@ -178,6 +183,10 @@ def _call_canceled(is_canceled) -> bool:
         return bool(is_canceled)
 
 
+# telemetry batches a run hands the database's tap at most at once (the
+# JAX package's cap on one compiled program)
+_MAX_BATCHES = 4096
+
 # seconds an idle writer thread waits before it checks whether its pump is
 # still alive
 _PUMP_IDLE_S = 1.0
@@ -193,19 +202,34 @@ class _TelemetryPump:
     stall is counted.  An error on the writer thread is raised again at
     the next ``submit`` or ``flush``.
 
+    The writer takes every commit queued when it wakes and appends them to
+    the history as one stacked batch: the rows and timestamps are those of
+    one commit at a time, in fewer calls.  ``tap()`` returns the telemetry
+    database's tap (``(ts_us, stacked numpy columns)``) or None.  Commits
+    are held for it until ``end_batch``: the step loop marks the end of
+    each ``run`` batch, so the tap is called once a batch, with every row
+    of it stacked, as the JAX package calls it once a compiled program.
+
     The thread holds the queue and a weak reference to the pump, never the
     pump itself: once its ``Exec`` is gone the history is freed and the
     thread ends."""
 
-    def __init__(self, history: History, meta: WorldMeta, profiler: Profiler):
+    def __init__(self, history: History, meta: WorldMeta, profiler: Profiler,
+                 tap=lambda: None):
         depth = int(os.environ.get("ELODIN_COMMIT_QUEUE", "64"))
         self.q: _queue.Queue = _queue.Queue(maxsize=depth)
         self.history = history
         self.meta = meta
         self.profiler = profiler
+        self.tap = tap
+        self._tapped: list = []  # (ts, host columns) held until end_batch
         # optional Log2Histogram: the run loop's tick metrics "commit" phase
-        # (recorded here because the commit runs off the step loop)
+        # (recorded here because the commit runs off the step loop), one
+        # sample a batch: the writer's seconds for its commits and its tap,
+        # as the JAX package records one a compiled program
         self.commit_hist = None
+        self._batch_s = 0.0
+        self._batch_n = 0
         self.stalls = 0
         self.error: BaseException | None = None
         self._thread = threading.Thread(
@@ -214,12 +238,21 @@ class _TelemetryPump:
         self._thread.start()
 
     def submit(self, ts: np.ndarray, stacked: dict) -> None:
+        self._put((ts, stacked))
+        self._raise_error()
+
+    def end_batch(self) -> None:
+        """Mark the end of a batch: the commits submitted since the last
+        mark go to the tap as one call.  A writer's error is raised at the
+        next ``submit`` or ``flush``, not here."""
+        self._put((None, _END_BATCH))
+
+    def _put(self, item: tuple) -> None:
         try:
-            self.q.put_nowait((ts, stacked))
+            self.q.put_nowait(item)
         except _queue.Full:
             self.stalls += 1
-            self.q.put((ts, stacked))
-        self._raise_error()
+            self.q.put(item)
 
     def flush(self) -> None:
         self.q.join()
@@ -230,36 +263,77 @@ class _TelemetryPump:
             err, self.error = self.error, None
             raise err
 
-    def _commit(self, ts: np.ndarray, stacked: dict) -> None:
+    def _commit(self, items: list) -> None:
+        """Copy the queued commits ``items`` (``(ts, stacked device
+        columns)`` each, or an end-of-batch mark) to the host, record them
+        in the history as one stack, and hand each finished batch to the
+        tap.  The copy and the append are shared evenly among the commits
+        for ``commit_hist``."""
         try:
             t0 = time.perf_counter()
-            self.history.append_batch(ts, columns_to_numpy(stacked, self.meta))
-            dt = time.perf_counter() - t0
-            self.profiler.copy_s += dt
-            if self.commit_hist is not None:
-                self.commit_hist.observe_us(dt * 1e6)
+            host = [(ts, stacked if stacked is _END_BATCH else columns_to_numpy(stacked, self.meta))
+                    for ts, stacked in items]
+            commits = [h for h in host if h[1] is not _END_BATCH]
+            if commits:
+                self.history.append_batch(*_stack(commits))
+            share = (time.perf_counter() - t0) / max(len(commits), 1)
+            tap = self.tap()
+            for ts, cols in host:
+                if cols is not _END_BATCH:
+                    self._batch_s += share
+                    self._batch_n += 1
+                    if tap is not None:
+                        self._tapped.append((ts, cols))
+                    continue
+                if self._tapped:
+                    t1 = time.perf_counter()
+                    ts, cols = _stack(self._tapped)
+                    self._tapped = []
+                    start = self.history.start_timestamp.timestamp()
+                    tap(((start + ts) * 1e6).astype(np.int64), cols)
+                    self._batch_s += time.perf_counter() - t1
+                if self.commit_hist is not None and self._batch_n:
+                    self.commit_hist.observe_us(self._batch_s * 1e6)
+                self._batch_s, self._batch_n = 0.0, 0
+            self.profiler.copy_s += time.perf_counter() - t0
         except Exception as e:  # noqa: BLE001  (raised again on the step loop)
             self.error = e
 
 
+# the queued item that ends a batch (``_TelemetryPump.end_batch``)
+_END_BATCH = object()
+
+
+def _stack(commits: list) -> tuple[np.ndarray, dict]:
+    """``(ts, host columns)`` commits as one: times and columns stacked."""
+    return (np.concatenate([ts for ts, _ in commits]),
+            {k: np.concatenate([cols[k] for _, cols in commits]) for k in commits[0][1]})
+
+
 def _pump_loop(q: _queue.Queue, pump_ref) -> None:
-    """The writer thread: commits each queued batch while its pump lives,
-    and ends once the pump is gone and the queue has stayed empty for
-    ``_PUMP_IDLE_S``."""
+    """The writer thread: commits the queued batches while its pump lives,
+    every batch queued when it wakes at once, and ends once the pump is gone
+    and the queue has stayed empty for ``_PUMP_IDLE_S``."""
     while True:
         try:
-            item = q.get(timeout=_PUMP_IDLE_S)
+            items = [q.get(timeout=_PUMP_IDLE_S)]
         except _queue.Empty:
             if pump_ref() is None:
                 return
             continue
+        while True:
+            try:
+                items.append(q.get_nowait())
+            except _queue.Empty:
+                break
         pump = pump_ref()
         try:
             if pump is not None:
-                pump._commit(*item)
+                pump._commit(items)
         finally:
-            pump = item = None
-            q.task_done()
+            for _ in items:
+                q.task_done()
+            pump = items = None
 
 
 def _to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -279,15 +353,15 @@ class _LockstepSession:
     host-to-device copy, steps ``hold_ticks`` ticks eagerly, gathers the
     sent values of every tick into one flat f64 tensor (stacked
     ``(hold_ticks, len)`` when ``hold_ticks > 1``) and brings it to the host
-    in one copy.  ``hold_ticks > 1`` is the batched mode: the commands are
-    held over the window, so the external controller runs at
-    sim_rate / hold_ticks.
+    in one copy.  Host writes queued from other threads are applied first.
+    ``hold_ticks > 1`` is the batched mode: the commands are held over the
+    window, so the external controller runs at sim_rate / hold_ticks.
 
     ``emit`` is ``Exec.record_history`` when the session is built; with it
     every tick of an exchange goes to the telemetry pump.  A bridge that
     sees ``emit`` differ from the exec's setting builds a new session.
-    ``Exec.write_component`` rebinds its column at once, so no host write
-    is pending when an exchange starts."""
+    ``Exec.write_component`` from the bridge's own thread rebinds its
+    column at once."""
 
     def __init__(self, exec_: "Exec", send: list[str], recv: list[str],
                  hold_ticks: int = 1):
@@ -314,17 +388,21 @@ class _LockstepSession:
         post-step send vector: (len,) at hold_ticks=1, (hold_ticks, len) in
         batched mode (one row per tick of the window)."""
         ex = self.exec
+        ex._apply_host_writes()
         dt = ex.sim_time_step
         cols = dict(ex.cols)
         for c in self.recv_comps:
             cols[c] = _to_device(self.cmd_bufs[c], ex.device)
         base = (ex._tick + 1) * dt
         outs = []
-        for i in range(self.hold_ticks):
-            cols = ex._step(cols)
-            outs.append(self._gather(cols))
-            if self.emit:
-                ex._commit(base + i * dt, cols)
+        try:
+            for i in range(self.hold_ticks):
+                cols = ex._step(cols)
+                outs.append(self._gather(cols))
+                if self.emit:
+                    ex._commit(base + i * dt, cols)
+        finally:
+            ex._end_batch()
         ex.cols = cols
         ex._tick += self.hold_ticks
         ex.profiler.ticks += self.hold_ticks
@@ -337,8 +415,10 @@ class Exec:
 
     ``cols`` are numpy columns (``WorldBuilder.snapshot()``); they are
     checked against ``meta`` and moved to ``device`` once.  The parameters
-    before ``device`` are the JAX package's, in its order; ``db_path``
-    needs the telemetry database, which is not ported."""
+    before ``device`` are the JAX package's, in its order.  ``db_path`` is
+    the telemetry database's directory: the history spools under it, and
+    ``db.server.serve_exec`` serves it.  An ``Exec`` on a mesh across
+    processes takes no ``db_path``."""
 
     # True copies each commit to the history on the step loop, without the
     # pump: the reference that the pump's history is held to in the tests
@@ -356,16 +436,20 @@ class Exec:
         db_path: str | None = None,
         device: str | torch.device = "cuda",
     ):
-        if db_path is not None:
+        self.mesh = device if isinstance(device, Mesh) else None
+        if db_path is not None and self.mesh is not None:
             raise NotImplementedError(
-                "Exec(db_path=...): the telemetry database is not ported "
-                "(ROADMAP.md §1 item 6)")
+                "Exec(db_path=...) on a mesh across processes: one database "
+                "fed by every rank is not ported (ROADMAP.md §3)")
         self.meta = meta
         self.sim_time_step = sim_time_step
         self.max_ticks = max_ticks
+        self.db_path = db_path
+        # the telemetry database's tap, set by db.server.serve_exec: called
+        # on the writer thread with (timestamps_us, stacked numpy columns)
+        self.on_commit_batch = None
         self.profiler = Profiler(sim_time_step)
         self.record_history = record_history
-        self.mesh = device if isinstance(device, Mesh) else None
         self._window: distributed.RowWindow | None = None  # this rank's rows on a mesh
         self.device = self._mesh_device() if self.mesh is not None else torch.device(device)
         # ticks between telemetry commits (>=1)
@@ -384,11 +468,17 @@ class Exec:
         self.cols = self._place(cols)
         self.profiler.build_s = time.perf_counter() - t0
 
-        self._history = History(meta)
+        spool = os.path.join(db_path, "history_spool") if db_path else None
+        self._history = History(meta, spool_dir=spool)
         self._tick = 0
         if self.record_history:
             self._history.append_state(0.0, columns_to_numpy(self._whole(self.cols), meta))
         self._pump: _TelemetryPump | None = None
+        # write_component from another thread than the step loop's: one
+        # host value a (component, row), applied before the next tick
+        self._loop_thread = threading.get_ident()
+        self._host_writes: dict[tuple[str, int], np.ndarray] = {}
+        self._host_writes_lock = threading.Lock()
 
     # -- placement on a mesh ---------------------------------------------------
 
@@ -436,14 +526,16 @@ class Exec:
     def run(self, ticks: int = 1, show_progress: bool = True, is_canceled=None):
         """``ticks`` ticks, committed to the history every telemetry
         stride.  ``show_progress`` is accepted as the JAX package accepts
-        it, and shows nothing."""
+        it, and shows nothing.  The calling thread becomes the step loop's
+        (``write_component``)."""
+        self._loop_thread = threading.get_ident()
         remaining = int(ticks)
         if self.max_ticks is not None:
             remaining = min(remaining, max(0, self.max_ticks - self._tick))
         stride = self.ticks_per_telemetry
         while remaining > 0:
             if remaining >= stride:
-                n = remaining // stride
+                n = min(remaining // stride, _MAX_BATCHES)
                 self._run_batch(n, stride)
                 remaining -= n * stride
             else:
@@ -455,19 +547,25 @@ class Exec:
 
     def _run_batch(self, n: int, stride: int) -> None:
         """``n`` telemetry batches of ``stride`` ticks, each committed to
-        the history when recording."""
-        cols = self.cols
-        for _ in range(n):
-            t0 = time.perf_counter()
-            for _ in range(stride):
-                cols = self._step(cols)
-            self._sync()
-            self.profiler.kernel_s += time.perf_counter() - t0
-            self.cols = cols
-            self._tick += stride
-            self.profiler.ticks += stride
-            if self.record_history:
-                self._commit(self._tick * self.sim_time_step, cols)
+        the history when recording, and all ``n`` handed to the database's
+        tap as one batch; writes queued from other threads are applied
+        before each batch."""
+        try:
+            for _ in range(n):
+                self._apply_host_writes()
+                cols = self.cols
+                t0 = time.perf_counter()
+                for _ in range(stride):
+                    cols = self._step(cols)
+                self._sync()
+                self.profiler.kernel_s += time.perf_counter() - t0
+                self.cols = cols
+                self._tick += stride
+                self.profiler.ticks += stride
+                if self.record_history:
+                    self._commit(self._tick * self.sim_time_step, cols)
+        finally:
+            self._end_batch()
 
     def _commit(self, t: float, cols: dict) -> None:
         """Record the state ``cols`` at sim time ``t``: its device tensors
@@ -482,9 +580,21 @@ class Exec:
             return
         self._ensure_pump().submit(np.asarray([t]), {k: v.unsqueeze(0) for k, v in cols.items()})
 
+    def _end_batch(self) -> None:
+        """The commits since the last call go to the database's tap as one
+        batch."""
+        if self._pump is not None:
+            self._pump.end_batch()
+
     def _ensure_pump(self) -> _TelemetryPump:
         if self._pump is None:
-            self._pump = _TelemetryPump(self._history, self.meta, self.profiler)
+            ref = weakref.ref(self)  # the pump must not keep its Exec alive
+
+            def tap():
+                ex = ref()
+                return None if ex is None else ex.on_commit_batch
+
+            self._pump = _TelemetryPump(self._history, self.meta, self.profiler, tap)
             self._pump.commit_hist = getattr(self, "commit_hist", None)
         return self._pump
 
@@ -510,9 +620,33 @@ class Exec:
 
     def write_component(self, qualified: str, value) -> None:
         """Write one entity's value of a component ('entity.component'); the
-        next tick reads it.  The column is rebound, never written in
-        place."""
+        next tick reads it.  From the step loop's thread the column is
+        rebound at once, never written in place.  From another thread (the
+        database server's, for an ``external_control`` component) the value
+        is held as host numpy, touching no device tensor, and the step loop
+        applies it before its next tick."""
         comp, row = self._history.resolve(qualified)
+        if threading.get_ident() != self._loop_thread:
+            c = self.meta.components[comp]
+            v = np.asarray(value).astype(
+                _config.numpy_column_dtype(comp, c)).reshape(c.ty.shape)
+            with self._host_writes_lock:
+                self._host_writes[(comp, row)] = v
+            return
+        self._write_now(comp, row, value)
+
+    def _apply_host_writes(self) -> None:
+        """Apply the writes other threads queued, on the step loop (a write
+        queued while this reads an empty queue applies before the next
+        batch)."""
+        if not self._host_writes:
+            return
+        with self._host_writes_lock:
+            writes, self._host_writes = self._host_writes, {}
+        for (comp, row), v in writes.items():
+            self._write_now(comp, row, v)
+
+    def _write_now(self, comp: str, row: int, value) -> None:
         w = self._window
         if w is not None and comp in w.cut:
             r0, r1 = w.block(comp)
@@ -529,8 +663,13 @@ class Exec:
 
     def read_component(self, qualified: str) -> np.ndarray:
         """One entity's current value of a component, as numpy (at least
-        1-d)."""
+        1-d); a write queued from another thread and not yet applied is
+        what the next tick reads, so it is returned."""
         comp, row = self._history.resolve(qualified)
+        with self._host_writes_lock:
+            pending = self._host_writes.get((comp, row))
+        if pending is not None:
+            return np.atleast_1d(pending.copy())
         col = self._whole({comp: self.cols[comp]})[comp]
         value = columns_to_numpy({comp: col[row:row + 1]}, self.meta)[comp]
         return np.atleast_1d(value[0])
@@ -559,6 +698,40 @@ class Exec:
         restored_time = self._history.times[tick]
         self._history.truncate(tick + 1)
         self._tick = int(round(restored_time / self.sim_time_step))
+        with self._host_writes_lock:
+            self._host_writes.clear()
+
+    def restore_from_db(self, db) -> int:
+        """Resume from a telemetry database (``db.storage.Database``): each
+        (entity, component) with stored rows takes its latest row back into
+        the device state, each column at its own dtype and device (u64
+        rows as int64).  The tick counter comes from the restored ``tick``
+        column: the stored timestamps are anchored to a wall clock, so
+        they cannot give it across processes.  Returns the number of
+        components restored."""
+        from .db.vtable import component_id_of, store_name
+
+        host = columns_to_numpy(self._whole(self.cols), self.meta)
+        restored = 0
+        for comp_name, ids in self.meta.comp_entities.items():
+            col = host[comp_name].copy()
+            hit = False
+            for i, eid in enumerate(ids):
+                store = db.components.get(component_id_of(store_name(self.meta, comp_name, eid)))
+                if store is None or store.len == 0:
+                    continue
+                _ts, row = store.latest()
+                col[i] = np.asarray(row).reshape(col.shape[1:])
+                hit = True
+            if hit:
+                host[comp_name] = col
+                restored += 1
+        self.cols = self._place(host)
+        if "tick" in host and restored:
+            # every entity's tick advances together; max only matters when
+            # some stores lack their newest rows
+            self._tick = int(host["tick"].max())
+        return restored
 
     def save_checkpoint(self, path) -> None:
         """Write the live state as an npz file, one array per component at

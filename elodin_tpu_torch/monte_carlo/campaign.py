@@ -20,8 +20,8 @@ perf.csv + resources.csv + summary.json, with:
 Each sample is ``python SIM run [--device DEV]`` in its own process, started
 with ``subprocess.Popen`` (never a fork of this process, which may hold a
 CUDA context); the child finds this package through its ``PYTHONPATH``.
-The per-run telemetry database is not ported: a run that leaves a ``db/``
-directory to compact raises ``NotImplementedError``.
+A run's telemetry database (``db/`` in its run directory) is kept, dropped
+or compacted by the campaign's retention policy.
 """
 
 from __future__ import annotations
@@ -179,8 +179,16 @@ def _apply_retention(run_dir: Path, record: dict, retention: dict) -> None:
         if drop:
             shutil.rmtree(db_dir, ignore_errors=True)
         elif retention.get("compact_run_db", True):
-            raise NotImplementedError(
-                f"compact_run_db on {db_dir}: the telemetry database is not ported")
+            try:
+                from ..db.__main__ import _rewrite
+                from ..db.storage import Database
+
+                db = Database(str(db_dir))
+                for store in db.components.values():
+                    _rewrite(store)
+                db.flush()
+            except Exception as e:  # noqa: BLE001  (the campaign goes on)
+                print(f"warning: compacting {db_dir} failed: {e}", file=sys.stderr)
     patterns = (
         retention.get("prune_on_pass", [])
         if passed

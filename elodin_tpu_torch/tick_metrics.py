@@ -62,7 +62,8 @@ class Log2Histogram:
 
 class TickMetrics:
     """Per-phase histograms for the serve loop (tick_metrics.rs:1-60):
-    pre_step / copy_db_to_world / run / commit / post_step / pacing."""
+    pre_step / copy_db_to_world / run / commit / post_step / pacing.
+    ``commit`` is the telemetry writer thread's, one sample a run batch."""
 
     PHASES = ("pre_step", "copy_to_world", "run", "commit", "post_step", "pacing")
 

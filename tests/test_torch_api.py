@@ -45,7 +45,7 @@ def test_run_takes_show_progress_in_the_jax_order():
     assert ex2.tick() == 6 and calls == [1]
 
 
-def test_build_takes_the_jax_parameters_in_their_order():
+def test_build_takes_the_jax_parameters_in_their_order(tmp_path):
     ours = list(inspect.signature(tel.World.build).parameters)
     ref = list(inspect.signature(jel.World.build).parameters)
     assert ours == ref + ["device"]
@@ -58,8 +58,13 @@ def test_build_takes_the_jax_parameters_in_their_order():
                                  None, "tpu", "cpu")
     ex.run(10)
     assert ex.tick() == 3 and ex.cols["world_pos"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="database"):
-        ttb.build_world().build(ttb.build_system(), db_path="x.db", device="cpu")
+    # db_path reaches the Exec, whose history spools under it
+    ex = ttb.build_world().build(ttb.build_system(), db_path=str(tmp_path / "x.db"),
+                                 device="cpu")
+    assert ex.db_path == str(tmp_path / "x.db")
+    assert ex._history._spool_dir == os.path.join(str(tmp_path / "x.db"), "history_spool")
+    ex.run(2)
+    assert ex.tick() == 2
 
 
 def test_save_archive_defaults_to_parquet(tmp_path):
@@ -147,10 +152,9 @@ def test_edge_reverse_and_archetype_name():
     assert TestArchetype(np.float64(1.0)).archetype_name() == "test_archetype"
 
 
-def test_exec_takes_the_jax_parameters_then_device():
-    """``Exec``'s eighth parameter is ``db_path``, as in the JAX package;
-    it raises until the telemetry database is ported, and ``device``
-    follows it."""
+def test_exec_takes_the_jax_parameters_then_device(tmp_path):
+    """``Exec``'s eighth parameter is ``db_path``, as in the JAX package,
+    and ``device`` follows it."""
     from elodin_tpu_torch.execimpl import Exec as TExec
 
     ours = list(inspect.signature(TExec).parameters)
@@ -158,8 +162,9 @@ def test_exec_takes_the_jax_parameters_then_device():
     assert ours == ref + ["device"]
     meta, cols = ttb.build_world().snapshot()
     system = ttb.build_system()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
-        TExec(meta, cols, system, 1 / 120.0, None, None, True, "run.db")
+    ex = TExec(meta, cols, system, 1 / 120.0, None, None, True, str(tmp_path / "run.db"),
+               "cpu")
+    assert ex.db_path == str(tmp_path / "run.db") and ex.on_commit_batch is None
     ex = TExec(meta, cols, system, 1 / 120.0, device="cpu")
     ex.run(2)
     assert ex.tick() == 2 and ex.cols["world_pos"].device.type == "cpu"

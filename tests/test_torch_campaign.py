@@ -13,8 +13,8 @@ process on the CPU (``device="cpu"``).
   the same ``plan.csv`` row (``Exec.run(2400)``, then
   ``read_component``): the landing tolerance of
   ``tests/test_torch_examples.py``.
-* ``compact_run_db`` raises ``NotImplementedError`` on a run that left a
-  ``db/`` directory; ``--device`` reaches each child.
+* ``compact_run_db`` rewrites a run's ``db/`` directory with its rows
+  unchanged; ``--device`` reaches each child.
 """
 
 import csv
@@ -103,13 +103,25 @@ def test_resume_keeps_the_whole_campaign(tmp_path):
     assert summary["total"] == 2 and summary["valid"] == 2
 
 
-def test_compacting_a_run_database_is_not_ported(tmp_path):
+def test_compacting_a_run_database_keeps_its_rows(tmp_path):
+    """``compact_run_db`` rewrites each store of a run's database, as the
+    JAX package's retention does; the rows read back unchanged."""
+    from elodin_tpu_torch.db.storage import Database
+
     run_dir = tmp_path / "runs" / "000000"
-    (run_dir / "db").mkdir(parents=True)
+    db = Database(str(run_dir / "db"))
+    store = db.get_or_create(7, "f64", (3,), "craft.pos")
+    rows = np.arange(12.0).reshape(4, 3)
+    store.append_batch(np.arange(4, dtype=np.int64) * 10, rows)
+    db.flush()
+    del db, store
     record = {"valid": True, "degraded": False}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcampaign._apply_retention(run_dir, record, {"keep_run_db": "always"})
-    # dropping a database needs no database code
+    tcampaign._apply_retention(run_dir, record, {"keep_run_db": "always"})
+    again = Database(str(run_dir / "db")).components[7]
+    assert again.name == "craft.pos" and again.len == 4
+    np.testing.assert_array_equal(again.values[:4], rows)
+    np.testing.assert_array_equal(again.timestamps[:4], np.arange(4) * 10)
+    # dropping a database
     tcampaign._apply_retention(run_dir, record, {"keep_run_db": "never"})
     assert not (run_dir / "db").exists()
 

@@ -13,8 +13,9 @@ elodin_tpu_torch``) against the JAX package's, on the CPU.
   rocket: every column within 1e-10 of the JAX package's
   ``World.build(...).run(120)`` (the rocket's tolerance,
   ``tests/test_torch_examples.py``), the callbacks in the JAX ``run_cli``
-  order, ``ELODIN_SIM_SUMMARY_JSON`` written; a database path or
-  ``ELODIN_RESUME=1`` raises ``NotImplementedError``.
+  order, ``ELODIN_SIM_SUMMARY_JSON`` written, the telemetry served on the
+  run's address; a database path (``db_path``, ``ELODIN_DB_PATH``) is
+  written and ``ELODIN_RESUME=1`` resumes from it.
 * One subprocess, ``python -m elodin_tpu_torch bench
   elodin_tpu_torch.examples.ball.sim --ticks 20 --device cpu``.
 """
@@ -168,14 +169,14 @@ def test_world_run_on_the_rocket_matches_the_jax_package(tmp_path, monkeypatch, 
 
     summary = tmp_path / "summary.json"
     monkeypatch.setenv("ELODIN_SIM_SUMMARY_JSON", str(summary))
-    _argv(monkeypatch, "run")
+    _argv(monkeypatch, "run", "127.0.0.1:0")
     calls = []
     ours = trocket.build_world().run(
         trocket.build_system(), simulation_rate=1.0 / trocket.SIM_TIME_STEP,
         max_ticks=ROCKET_TICKS, pre_step=lambda tick, ctx: calls.append(("pre", tick, ctx.tick())),
         post_step=lambda tick, ctx: calls.append(("post", tick, ctx.tick())), device="cpu")
     captured = capsys.readouterr()
-    assert "not ported" in captured.err and f"{ROCKET_TICKS} ticks" in captured.out
+    assert "warning" not in captured.err and f"{ROCKET_TICKS} ticks" in captured.out
     assert ours.tick() == ROCKET_TICKS and ours.cols["world_pos"].device.type == "cpu"
     want = []
     for t in range(ROCKET_TICKS):
@@ -194,21 +195,24 @@ def test_world_run_on_the_rocket_matches_the_jax_package(tmp_path, monkeypatch, 
     assert data["real_time_factor_run"] > 0.0 and "commit" in data["phases"]
 
 
-def test_run_limits_and_refusals(monkeypatch, capsys):
+def test_run_limits_and_refusals(monkeypatch, capsys, tmp_path):
+    from elodin_tpu_torch.db.storage import Database
+
     world, system = ttb.build_world, ttb.build_system
-    _argv(monkeypatch, "run", "--device", "cpu")
+    _argv(monkeypatch, "run", "127.0.0.1:0", "--device", "cpu")
     monkeypatch.setenv("ELODIN_MAX_TICKS", "7")
     assert world().run(system()).tick() == 7
     assert world().run(system(), max_ticks=3).tick() == 3
-    with pytest.raises(NotImplementedError, match="database"):
-        world().run(system(), db_path="out/db")
-    monkeypatch.setenv("ELODIN_DB_PATH", "out/db")
-    with pytest.raises(NotImplementedError, match="database"):
-        world().run(system())
-    monkeypatch.delenv("ELODIN_DB_PATH")
+    # a database path: the served telemetry lands there, 1 + 7 rows
+    assert world().run(system(), db_path=str(tmp_path / "a")).tick() == 7
+    stores = Database(str(tmp_path / "a")).components.values()
+    assert stores and {s.len for s in stores} == {8}
+    monkeypatch.setenv("ELODIN_DB_PATH", str(tmp_path / "b"))
+    assert world().run(system()).tick() == 7
+    # resumed at the stored tick, which is already the limit
     monkeypatch.setenv("ELODIN_RESUME", "1")
-    with pytest.raises(NotImplementedError, match="database"):
-        world().run(system())
+    assert world().run(system()).tick() == 7
+    monkeypatch.delenv("ELODIN_DB_PATH")
     monkeypatch.setenv("ELODIN_SKIP_RUN", "1")
     assert world().run(system()) is None
     monkeypatch.delenv("ELODIN_SKIP_RUN")
@@ -222,10 +226,16 @@ def test_run_limits_and_refusals(monkeypatch, capsys):
 
 @pytest.mark.parametrize("cmd", ["db", "editor", "render-server"])
 def test_python_m_refuses_what_needs_the_database(cmd, capsys):
+    """``editor`` and ``render-server`` are not ported; ``db`` runs the
+    database's CLI, which without a subcommand exits with its usage."""
     with pytest.raises(SystemExit) as e:
         tmain.main([cmd])
     assert e.value.code != 0
-    assert "telemetry database, not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if cmd == "db":
+        assert "usage: elodin-db" in err
+    else:
+        assert "is not ported (ROADMAP.md §1 item 8)" in err
 
 
 def test_python_m_bench_of_a_module_in_a_subprocess():

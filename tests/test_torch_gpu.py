@@ -833,3 +833,50 @@ def test_wmm_on_the_card_matches_its_cpu(cuda):
     for o, r in zip(wmm.declination_inclination(grid_lat.to(cuda), grid_lon.to(cuda), 0.0),
                     wmm.declination_inclination(grid_lat, grid_lon, 0.0)):
         assert rel_err(o, r) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_served_nbody_on_k2(cuda, tmp_path):
+    """``chip_smoke.py`` phase 39 (a) at 64 bodies: n-body on K2, f64,
+    built with ``db_path`` and served; ``Exec.run(20)`` launches K2 20
+    times and K1 never, and a client reads every body's ``world_pos`` and
+    ``world_vel``, 21 rows each, bitwise the ``Exec``'s history, again
+    after a reopen."""
+    import elodin_tpu_torch.db as edb
+    from elodin_tpu_torch import _config
+    from elodin_tpu_torch.db.server import serve_exec
+    from elodin_tpu_torch.models.nbody import build_system
+
+    prev = _config._FLOAT_POLICY
+    _config.set_float_policy("f64")
+    try:
+        exec_ = build_nbody(64, seed=2).build(build_system(60.0, use_kernel=True), device="cuda",
+                                              simulation_rate=1.0 / 60.0,
+                                              db_path=str(tmp_path / "db"))
+        server = serve_exec(exec_, "127.0.0.1:0")
+        try:
+            before = pw.LAUNCHES, sk.LAUNCHES
+            exec_.run(20)
+            assert (pw.LAUNCHES - before[0], sk.LAUNCHES - before[1]) == (20, 0)
+            exec_.flush_telemetry()
+            client = edb.Client.connect(f"127.0.0.1:{server.port}")
+            read = {}
+            for q in exec_._history.column_names():
+                comp, row = exec_._history.resolve(q)
+                if comp not in ("world_pos", "world_vel"):
+                    continue
+                ts, vals = client.time_series(q)
+                want = exec_._history.series(comp)[:, row]
+                assert len(ts) == 21
+                np.testing.assert_array_equal(np.asarray(vals).reshape(want.shape), want)
+                read[q] = want
+            client.close()
+            assert len(read) == 128
+        finally:
+            server.stop()
+    finally:
+        _config.set_float_policy(prev)
+    db = edb.Database(str(tmp_path / "db"))
+    for q, want in read.items():
+        store = db.by_name(q)
+        np.testing.assert_array_equal(store.values[:store.len].reshape(want.shape), want)

@@ -95,6 +95,17 @@ PORT_MODULES = [
     "elodin_tpu_torch.examples.crazyflie_edu.main",
     "elodin_tpu_torch.examples.rc_jet.sim",
     "elodin_tpu_torch.examples.rc_jet.main",
+    "elodin_tpu_torch.db",
+    "elodin_tpu_torch.db.__main__",
+    "elodin_tpu_torch.db.server",
+    "elodin_tpu_torch.db.follow",
+    "elodin_tpu_torch.db.framing",
+    "elodin_tpu_torch.db.eql",
+    "elodin_tpu_torch.db.export",
+    "elodin_tpu_torch.db.downsample",
+    "elodin_tpu_torch.native",
+    "elodin_tpu_torch.plotline",
+    "elodin_tpu_torch.status",
 ]
 
 

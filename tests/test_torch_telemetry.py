@@ -12,6 +12,9 @@
 * ``history_frame``, ``state_at`` and ``StepContext.truncate`` flush
   first: each reads right after ``run(30)``, with a writer slowed so that
   a read that did not wait would miss rows.
+* The database's tap takes one stacked batch a ``run`` (at most
+  ``_MAX_BATCHES`` commits) and one a lockstep exchange, its rows and
+  timestamps those of the history, with one ``commit_hist`` sample a batch.
 * ``Log2Histogram`` / ``TickMetrics`` / ``ELODIN_SIM_SUMMARY_JSON`` as in
   ``tests/test_core.py``, the port's summaries equal to the JAX
   package's for the same observations.
@@ -233,3 +236,43 @@ def test_sim_summary_json(tmp_path, monkeypatch):
     data = json.loads(path.read_text())
     assert data["ticks"] == 1 and data["rtf"] == 100.0
     assert sorted(data["phases"]) == ["commit", "run"]
+
+
+@pytest.mark.parametrize("runs, cap, calls", [
+    ((30,), None, [30]),            # one run, one tap call, as the JAX package's program
+    ((1, 1, 1), None, [1, 1, 1]),   # the served loop's run(1) a tick
+    ((20,), 8, [8, 8, 4]),          # a run past the cap on one batch
+])
+def test_the_tap_takes_one_stacked_batch_a_run(runs, cap, calls, monkeypatch):
+    from elodin_tpu_torch import execimpl
+
+    if cap is not None:
+        monkeypatch.setattr(execimpl, "_MAX_BATCHES", cap)
+    ex = ttb.build_world().build(ttb.build_system(), device="cpu")
+    ex.commit_hist = Log2Histogram()
+    got = []
+    ex.on_commit_batch = lambda ts_us, cols: got.append((ts_us, cols))
+    _slow_writer(ex, 0.002)  # the writer wakes to several queued commits
+    for n in runs:
+        ex.run(n)
+    ex.flush_telemetry()
+    assert [len(ts) for ts, _ in got] == calls
+    assert ex.commit_hist.count == len(calls)
+    start = ex._history.start_timestamp.timestamp()
+    times = np.asarray(ex._history.times[1:])
+    np.testing.assert_array_equal(np.concatenate([ts for ts, _ in got]),
+                                  ((start + times) * 1e6).astype(np.int64))
+    for k in ex.meta.components:
+        np.testing.assert_array_equal(np.concatenate([cols[k] for _, cols in got]),
+                                      ex._history.series(k)[1:], err_msg=k)
+
+
+def test_a_lockstep_exchange_is_one_tap_batch():
+    ex = ttb.build_world().build(ttb.build_system(), device="cpu")
+    got = []
+    ex.on_commit_batch = lambda ts_us, cols: got.append(len(ts_us))
+    session = ex.lockstep_session(["a.world_pos"], ["b.world_vel"], hold_ticks=4)
+    for _ in range(3):
+        session.tick()
+    ex.flush_telemetry()
+    assert got == [4, 4, 4] and len(ex._history.times) == 13
