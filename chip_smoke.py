@@ -33,7 +33,8 @@ The batched 6-dof RK4 path and its kernel (sixdof_rk4):
    ≤ 1e-4 (per channel group, max |Δ| / max |ref|).
 5. kernel (4000 ticks) and plain version (20 ticks) timed with CUDA
    events, f32 and f64, at 1024 bodies and at the JAX bench's kernel
-   width, 131072 bodies; the bound of a tick there, from the function's
+   width, 131072 bodies, with the card's SM clock and its maximum read
+   just after the kernel's timed calls; the bound of a tick there, from the function's
    operations and SFU results (``SIXDOF_TICK_OPS``), with the loops of the
    kernel's SASS beside it (cuobjdump, read by ``scripts/sass_loops.py``).
 6. device trace with ``torch.profiler``: device ops per tick, device busy
@@ -84,13 +85,14 @@ The falcon9 RTLS Monte Carlo campaign (eager PyTorch ops under
 ``torch.func.vmap``; no hand kernel):
 
 13. ``examples.falcon9.batched.make_campaign(10000, seed=0,
-    device="cuda")`` (LHS draws, f64), then ``BatchedCampaign.run(300,
+    device="cuda")`` (LHS draws, f64), then ``BatchedCampaign.run(200,
     history_every=100, history_components=[world_pos, world_vel, phase,
-    prop_kg], until=phase == DOWN)``: 3 s of the mission (spool-up,
-    release from the hold-down, liftoff, 60 guidance ticks).  Both kernels'
+    prop_kg], until=phase == DOWN)``: 2 s of the mission (spool-up,
+    release from the hold-down, liftoff, 40 guidance ticks; 300 ticks until
+    phase 40 took its time).  Both kernels'
     launch counts are set to 0 before and read after (the path has no
-    hand kernel).  Checks: every column finite, tick == 300 and lifted ==
-    1 in every sample, guidance on 60 ticks, the last history emit equal
+    hand kernel).  Checks: every column finite, tick == 200 and lifted ==
+    1 in every sample, guidance on 40 ticks, the last history emit equal
     to the final state bitwise, and the first 8 samples equal to the port's
     run on the CPU from the same draws to ≤ 1e-9 per channel group
     (``batched.state_errors``).  Then ms/tick with and without guidance
@@ -216,14 +218,14 @@ until phases 32-34 took their time):
     probe child as ``python -m`` runs it) parses and names every file of
     its CSV baseline.
 29. lockstep at the betaflight-sitl hover's 1 kHz
-    (``examples.betaflight_sitl``): ``run(ticks=4000)`` pipelined with the
+    (``examples.betaflight_sitl``): ``run(ticks=2000)`` pipelined with the
     ``controller.py`` process, strict at 1000 ticks, and
     ``run_batched(trips=40, hold=64)``, on the card and on the CPU: Hz,
     missed replies and the altitude held within 0.5 m (the gate); then the
     session on the card against the CPU for the same 50 commands at hold 1
     and 4, within 1e-12.
-30. the telemetry pump on the card: the cube-sat, 160 ticks in 2 windows
-    of 80, without history, with history through the pump and through the
+30. the telemetry pump on the card: the cube-sat, 80 ticks in 1 window
+    (``REPEATS``; 2 until phase 40), without history, with history through the pump and through the
     synchronous path (``Exec._sync_history``), the windows interleaved:
     ms per tick of the step loop and of the pump's drain after it; the two
     histories bitwise equal (the gate); the pump's stall count; a device
@@ -344,7 +346,7 @@ K2 once a tick):
     momentum drift, pairs/s and entity-steps/s; the first 5 ticks held
     against the same runner on the dense edge fold (1e-4 / 1e-12); a
     device trace of 20 ticks.  Then apollo-lander's ``run_dispersed(1024,
-    seed=0)`` campaign cut to ``APOLLO_TICKS`` (1000 of 9000) on the card
+    seed=0)`` campaign cut to ``APOLLO_TICKS`` (500 of 9000) on the card
     and on the CPU: the final state within 1e-9, sample-ticks/s of each,
     a device trace of 10 ticks.
 The last four core-API examples, the ECI frames and the World Magnetic
@@ -396,7 +398,36 @@ served n-body run launches K2 once a tick, (b) and (c) neither kernel):
     external-control world on the card: a client's ``wire_thrust`` write
     reaches the ``Exec`` from the server's thread and the next tick's
     ``wire_vel`` on the card shows it.
-40. a JSON line of the kernels (time, plain version's time and bound at
+40. the telemetry plane's second half on phase 39 (a)'s served n-body,
+    whose server stays up through (b): (a) a port ``MirrorWorld``
+    subscribes to every body's ``world_pos`` and ``world_vel``, then
+    ``Exec.run(100)``: 100 K2 launches and no K1 launch, counted around
+    the run; once the live sink holds the last row, ``value_at`` of
+    every series at every stored timestamp (phase 39's rows through
+    backfill, this run's through the live sink) is bitwise the
+    ``Exec``'s history; ms/tick mirrored against phase 39's unserved
+    figure, device ops a tick and idle share of 10 mirrored ticks, rows
+    the sink received live against those backfilled, rows a second into
+    the mirror.  (b) the web viewer over loopback HTTP: ``/api/info``,
+    ``/api/components`` (every store), ``/api/series`` of ``b0.world_pos``
+    (bitwise the history; downsampled, the history's LTTB pick),
+    ``/api/latest``, ``/api/sql`` (a count), ``/api/geoms`` and
+    ``/api/drawlist`` (the world has no schematic); a ``WsClient`` reads
+    the series through ``/ws``, bitwise the TCP client's; round trips
+    against phase 39's TCP one.  Then the server stops and phase 39 (a)'s
+    reopen check runs.  (c) ``python -m elodin_tpu_torch db export
+    --format mcap --pattern 'b1??.*'`` in process, read back with
+    ``read_mcap_full``: a message a stored row of each exported store (as
+    the reopen read it), at its time, its numbers the row's; bytes and
+    export time; the video-stream example's frames, as H.264, through a
+    server into a message log of a database of their own, then ``db
+    export-videos``: one MP4, a sample a frame.  (d)
+    the db-client example: its ball sim an s10 child on the card on a
+    free port (``ELODIN_MAX_TICKS=400``), the client sees
+    ``ball.world_pos``, its SQL returns 5 rows, its write back is read
+    back, and the child's process group is gone after stop; the child's
+    start-up.  Neither kernel launches in (b)-(d).
+41. a JSON line of the kernels (time, plain version's time and bound at
     the main path's width, launches on the main path; no PyTorch call
     computes either function, so ``library_ms`` is null; under
     ``sharded``, phase 35's launches, times and bound of the sharded
@@ -406,11 +437,13 @@ served n-body run launches K2 once a tick, (b) and (c) neither kernel):
     rank's time, the bound of its rows' work, its errors and, with 4
     cards, the four nccl ranks' time; under ``core_api``, phase 37's
     launches and K2's runner figures; under ``flight_examples``, phase
-    38's launches; under ``telemetry_db``, phase 39's), then the last line
+    38's launches; under ``telemetry_db``, phase 39's; under
+    ``telemetry_ui``, phase 40 (a)'s), then the last line
     ``{"ok": true, "device": {...}}``.
 """
 
 import cProfile
+import fnmatch
 import gc
 import json
 import math
@@ -421,6 +454,7 @@ import resource
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
@@ -437,7 +471,9 @@ TRACE_ATTEMPTS = 3  # calls of fn a device trace makes at most
 NBODY_BODIES, NBODY_TICKS, NBODY_DT = 16384, 100, 60.0
 EDGE_BODIES, EDGE_TICKS, EDGE_TRACE_TICKS = 4096, 50, 5
 PROBED_BODIES, PROBED_TICKS = 128, 10
-F9_SAMPLES, F9_TICKS, F9_HISTORY_EVERY = 10000, 300, 100
+# 200 ticks (300 until phase 40 took its time): still past liftoff, which the
+# phase checks in every sample
+F9_SAMPLES, F9_TICKS, F9_HISTORY_EVERY = 10000, 200, 100
 F9_CPU_SAMPLES, F9_TIMED_TICKS, F9_TOL = 8, 25, 1e-9
 PAIRWISE_SHAPES = (1, 2, 127, 129, 300, 1000, 4099, NBODY_BODIES)
 PAIRWISE_TIMED = (300, 1024, 4096, NBODY_BODIES)
@@ -501,7 +537,8 @@ CKPT_HISTORY_BYTES = 16 << 10
 # run_campaign(10000, 2400, seed=0), run on a CPU (JAX_PLATFORMS=cpu, f64)
 JAX_MC_LANDED_FRAC, JAX_MC_SOFT_FRAC = 0.9759, 0.9401
 REPO = os.path.dirname(os.path.abspath(__file__))
-REPEATS = 2  # of each timed figure of phases 29-30 (3 until phases 32-34 took their time)
+REPEATS = 1  # of each timed figure of phases 29-30 (3 until phases 32-34 took their time, 2 until
+# phase 40 did)
 CLI_REPEATS = 1  # bench children an example in phase 28 (cut from 3 for phases 32-34)
 # phase 28: each CLI child (module, bench ticks), cut to half the examples'
 # own 300 and 240 when phase 39 took its time
@@ -520,7 +557,8 @@ STARTUP_PROBE = (
     "print(json.dumps({'import_s': t1 - t0, 'cuda_init_s': t2 - t1, "
     "'components_s': time.perf_counter() - t2}))")
 # phase 29: the betaflight-sitl hover at its 1 kHz plant rate
-SITL_TICKS, SITL_STRICT_TICKS, SITL_TRIPS, SITL_HOLD = 4000, 1000, 40, 64
+# the pipelined run cut from 4000 ticks when phase 40 took its time
+SITL_TICKS, SITL_STRICT_TICKS, SITL_TRIPS, SITL_HOLD = 2000, 1000, 40, 64
 SESSION_COMMANDS, SESSION_TOL = 50, 1e-12
 # phase 30: the cube-sat with history, REPEATS windows of 80 ticks a mode
 PUMP_WINDOW_TICKS, PUMP_WARMUP_TICKS = 80, 10
@@ -553,7 +591,7 @@ NBODY_BATCHED = (8192, 200)  # examples/n_body/batched.py's defaults
 NBODY_BATCHED_PLAIN_TICKS = 5  # ticks held to the dense edge fold
 NBODY_BATCHED_TRACE_TICKS = 20
 APOLLO_SAMPLES = 1024  # run_dispersed's default width
-APOLLO_TICKS = 1000  # of its 9000: the phase's time
+APOLLO_TICKS = 500  # of its 9000: the phase's time (1000 until phase 40 took its time)
 APOLLO_TRACE_TICKS = 10
 # phase 38: the last four core-API examples, the ECI frames and wmm, f64
 FLIGHT_TOL = 1e-9
@@ -578,6 +616,15 @@ DB_RUN_TICKS = 120  # the three-body run's ticks, then as many again resumed
 DB_STREAM_ROWS = 10  # rows the real-time stream must deliver during the run
 DB_RESUME_TOL = 1e-12
 DB_WAIT_S = 30.0
+# phase 40: the mirror, the web viewer and /ws, MCAP and MP4 export, db-client
+UI_TICKS = 100  # the mirrored run of phase 39 (a)'s Exec
+UI_DRAIN_S = 120.0  # the live sink's deadline for the mirrored run's rows
+UI_SERIES = "b0.world_pos"  # the series the viewer and the bridge read
+UI_ROUND_TRIPS = 5
+UI_LTTB_POINTS = 50  # /api/series downsampled by LTTB to this many points
+UI_MCAP_PATTERN = "b1??.*"  # bodies b100-b199: 500 of the ~5.1k stores into the MCAP
+UI_VIDEO_FRAMES = 30  # the video-stream example's frames, paced at its 30 Hz
+DBC_TICKS = 400  # the db-client example's ball sim (the JAX test's ELODIN_MAX_TICKS)
 
 
 _START = time.perf_counter()
@@ -836,6 +883,7 @@ def _sixdof(el, interop):
             dev_cols = [torch.as_tensor(c, **args) for c in cols]
             k_min, k_med = _time_ms(
                 lambda: sk.sixdof_rollout(*dev_cols, DT, BENCH_TICKS, **args))
+            clock = _sm_clock()  # just after the kernel's timed calls
             p_min, p_med = _time_ms(
                 lambda: sk.sixdof_rollout_reference(*dev_cols, DT, PLAIN_TICKS, **args))
             k_tick, p_tick = k_min / BENCH_TICKS, p_min / PLAIN_TICKS
@@ -845,7 +893,8 @@ def _sixdof(el, interop):
                   f"{n / (k_tick * 1e-3):.4g} entity-steps/s; plain "
                   f"{PLAIN_TICKS} ticks min {p_min:.3f} ms median {p_med:.3f} ms -> "
                   f"{p_tick * 1e3:.4g} us/tick, {n / (p_tick * 1e-3):.4g} "
-                  f"entity-steps/s; kernel/plain speedup {p_tick / k_tick:.4g}x")
+                  f"entity-steps/s; kernel/plain speedup {p_tick / k_tick:.4g}x; SM clock "
+                  f"just after the kernel's timed calls, and its maximum: {clock}")
     if sk.LAUNCHES <= main_launches:
         raise AssertionError("the bench phase did not launch the kernel")
 
@@ -3372,13 +3421,14 @@ def _served_nbody(el, n, ticks, db_dir, device="cuda"):
     ``Exec.run(ticks)``.  The launch count is set to 0 just before the run
     and read just after.  A port ``Client`` reads every body's
     ``world_pos`` and ``world_vel`` series, held bitwise to the history
-    the same ``Exec`` kept (``state_at`` and ``history_frame`` with it),
-    then the database reopens from disk with the same rows.  Returns the
-    figures printed.  ``device`` (here and in phase 39's other parts) is
-    the card but for a rehearsal on the CPU."""
+    the same ``Exec`` kept (``state_at`` and ``history_frame`` with it).
+    Returns the figures printed, and under ``live`` the ``Exec``, the
+    server, still up, and the rows read: phase 40 works on them, and
+    ``_close_served`` stops the server and checks the reopened database.
+    ``device`` (here and in phase 39's other parts) is the card but for a
+    rehearsal on the CPU."""
     import elodin_tpu_torch.db as edb
     from elodin_tpu_torch.db.server import serve_exec
-    from elodin_tpu_torch.db.vtable import component_id_of
     from elodin_tpu_torch.models import build_nbody, build_nbody_system
     from elodin_tpu_torch.ops import pairwise as pw
     from elodin_tpu_torch.ops import sixdof_kernel as sk
@@ -3476,8 +3526,28 @@ def _served_nbody(el, n, ticks, db_dir, device="cuda"):
         out["idle_share"] = 1.0 - busy / wall if ops else math.nan
         if not all(np.isfinite(v[1]).all() for v in read.values()):
             raise AssertionError("phase 39 (a): non-finite rows")
-    finally:
+    except BaseException:
         server.stop()
+        raise
+    # the server stays up for phase 40; _close_served stops it and reopens
+    out["live"] = (exec_, server, read)
+    return out
+
+
+def _close_served(served, db_dir, ticks, pattern=None):
+    """Phase 39 (a)'s end: stop the server ``_served_nbody`` left running
+    (``served["live"]``), then reopen its database from disk: the first
+    ``ticks + 1`` rows of every series read in phase 39 (a) must be the
+    same there.  Returns ``{store name: (timestamps, rows)}`` of the
+    reopened stores whose names match ``pattern`` (fnmatch, any case; none
+    without one), read while the database is open once."""
+    import fnmatch
+
+    import elodin_tpu_torch.db as edb
+    from elodin_tpu_torch.db.vtable import component_id_of
+
+    exec_, server, read = served.pop("live")
+    server.stop()
     # the served database's stores hold two files open each: close them
     # before the reopen opens as many again
     exec_.on_commit_batch = None
@@ -3490,8 +3560,12 @@ def _served_nbody(el, n, ticks, db_dir, device="cuda"):
                 or not np.array_equal(store.timestamps[:ticks + 1], ts)
                 or not np.array_equal(store.values[:ticks + 1], vals)):
             raise AssertionError(f"phase 39 (a): {q} differs after the reopen")
-    return out
-
+    kept = {c.name: (np.array(c.timestamps[:c.len]), np.array(c.values[:c.len]))
+            for c in db.components.values()
+            if pattern and fnmatch.fnmatch(c.name.lower(), pattern.lower())}
+    del db
+    gc.collect()
+    return kept
 
 def _stream_rows(addr, names, rows, state, stop):
     """A client on a real-time stream of ``names`` at ``addr`` (retried
@@ -3599,7 +3673,8 @@ def _db_run_resume(el, db_dir, csv_dir, device="cuda"):
         ref_col = want[comp]
         if ref_col.dtype.kind != "f":
             if not np.array_equal(got.astype(ref_col.dtype), ref_col):
-                raise AssertionError(f"phase 39 (b): resumed {comp} differs")
+                raise AssertionError(f"phase 39 (b): resumed {comp} differs: "
+                                     f"{got.ravel()[:6]} against {ref_col.ravel()[:6]}")
             continue
         scale = float(np.max(np.abs(ref_col))) or 1.0
         worst = max(worst, float(np.max(np.abs(got - ref_col))) / scale)
@@ -3683,9 +3758,447 @@ def _db_external_control(el, db_dir, device="cuda"):
     return {"write_seen_ms": seen_ms}
 
 
+def _sm_clock():
+    """The card's SM clock and its maximum, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def _history_rows(exec_, names):
+    """(timestamps the tap stores, {series name: its rows}) of ``exec_``'s
+    history, flushed."""
+    hist = exec_._history
+    start = hist.start_timestamp.timestamp()
+    times = np.asarray(hist.times)
+    ts = np.concatenate([[int(start * 1e6)], ((start + times[1:]) * 1e6).astype(np.int64)])
+    cols = {c: hist.series(c) for c in {hist.resolve(q)[0] for q in names}}
+    rows = {}
+    for q in names:
+        comp, row = hist.resolve(q)
+        rows[q] = cols[comp][:, row]
+        if len(rows[q]) != len(ts):
+            raise AssertionError(f"{q}: {len(rows[q])} rows in the history, {len(ts)} times")
+    return ts, rows
+
+
+def _mirror_phase(served, ticks, device="cuda"):
+    """Phase 40 (a): a port ``MirrorWorld`` subscribes to every body's
+    ``world_pos`` and ``world_vel`` of phase 39 (a)'s served n-body, then
+    ``Exec.run(ticks)`` with both launch counts set to 0 just before and
+    read just after (K2 ``ticks`` times, K1 never), a flush, and a device
+    trace of ``DB_TRACE_TICKS`` more mirrored ticks.  Once the live sink
+    holds the last row, every series is backfilled over the whole history
+    and ``value_at`` at every stored timestamp must be bitwise the
+    ``Exec``'s history: phase 39's rows come through backfill, this run's
+    through the live sink."""
+    from elodin_tpu_torch.db.mirror import MirrorWorld
+    from elodin_tpu_torch.ops import pairwise as pw
+    from elodin_tpu_torch.ops import sixdof_kernel as sk
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    exec_, server, _read = served["live"]
+    names = [q for q in exec_._history.column_names()
+             if q.endswith((".world_pos", ".world_vel"))]
+    live = {"rows": 0}
+
+    def count(_name, _ts, _value):  # the sink thread's callback
+        live["rows"] += 1
+
+    out = {"series": len(names)}
+    before = len(exec_._history.times)
+    t0 = time.perf_counter()
+    mirror = MirrorWorld.connect(f"127.0.0.1:{server.port}", names)
+    out["subscribe_s"] = time.perf_counter() - t0
+    try:
+        mirror.on_update(count)
+        sync()
+        sk.LAUNCHES = pw.LAUNCHES = 0
+        t0 = time.perf_counter()
+        exec_.run(ticks)
+        sync()
+        run_s = time.perf_counter() - t0
+        out["launches"] = {"sixdof_rk4": sk.LAUNCHES, "pairwise_gravity": pw.LAUNCHES}
+        if out["launches"] != {"sixdof_rk4": 0, "pairwise_gravity": ticks}:
+            raise AssertionError(f"phase 40 (a): launches {out['launches']} in "
+                                 f"Exec.run({ticks}), expected K2 {ticks} and K1 0")
+        exec_.flush_telemetry()
+        out["run_ms_per_tick"] = run_s * 1e3 / ticks
+        out["ms_per_tick"] = (time.perf_counter() - t0) * 1e3 / ticks
+        ops, busy, wall = _device_trace(lambda: exec_.run(DB_TRACE_TICKS))
+        out["ops_per_tick"] = ops / DB_TRACE_TICKS
+        out["idle_share"] = 1.0 - busy / wall if ops else math.nan
+        exec_.flush_telemetry()
+        want_ts, rows = _history_rows(exec_, names)
+        last = int(want_ts[-1])
+        # every row committed after the subscription reaches the live sink
+        live_want = len(names) * (len(want_ts) - before)
+        deadline = time.perf_counter() + UI_DRAIN_S
+        while live["rows"] < live_want:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 40 (a): the live sink received {live['rows']} of "
+                                     f"{live_want} rows in {UI_DRAIN_S} s")
+            time.sleep(0.02)
+        out["sink_s"] = time.perf_counter() - t0
+        stale = [q for q in names if mirror.cache.peek(q).latest()[0] != last]
+        if stale:
+            raise AssertionError(f"phase 40 (a): the live sink lacks the last row of "
+                                 f"{len(stale)} series ({stale[:3]} ...)")
+        out["live_rows"] = live["rows"]
+        out["live_rows_per_s"] = live["rows"] / out["sink_s"]
+        if mirror.sink_errors:
+            raise AssertionError(f"phase 40 (a): {mirror.sink_errors} rows the sink refused")
+        t1 = time.perf_counter()
+        out["backfilled_rows"] = 0
+        for q in names:
+            out["backfilled_rows"] += mirror.backfill(q, int(want_ts[0]), last)
+            hist = rows[q]
+            for k, t in enumerate(want_ts):
+                v = mirror.value_at(q, int(t))
+                if v is None or not np.array_equal(np.ravel(v), hist[k]):
+                    raise AssertionError(f"phase 40 (a): {q} at {t} (row {k}) is not bitwise "
+                                         f"the history")
+        out["check_s"] = time.perf_counter() - t1
+        out["rows"] = len(want_ts)
+        if not all(np.isfinite(r).all() for r in rows.values()):
+            raise AssertionError("phase 40 (a): non-finite rows")
+    finally:
+        mirror.close()
+    return out
+
+
+def _get(url):
+    """(status, content type, body) of an HTTP GET over loopback."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=DB_WAIT_S) as r:
+        return r.status, r.headers.get_content_type(), r.read()
+
+
+def _ws_time_series(ws, name, prim, shape, req_id=7):
+    """``Client.time_series`` of ``name`` over the ``/ws`` bridge: one
+    GetTimeSeries request, its reply decoded as the TCP client decodes it."""
+    from elodin_tpu_torch.db import msgs as M
+    from elodin_tpu_torch.db.vtable import PRIM_NP, component_id_of
+
+    ws.send_bytes(M.GetTimeSeries(b"\x00\x01", -(2**62), 2**62, component_id_of(name),
+                                  None).packet(req_id))
+    buf = bytearray()
+    while True:
+        buf += ws.recv_bytes()
+        while len(buf) >= 4:
+            n = int.from_bytes(buf[:4], "little")
+            if len(buf) - 4 < n:
+                break
+            pkt = M.parse_packet(bytes(buf[4:4 + n]))
+            del buf[:4 + n]
+            if pkt.req_id != req_id:
+                continue
+            if pkt.ty == M.TY_MSG and pkt.id == M.ErrorResponse.ID:
+                raise AssertionError(M.ErrorResponse.decode(pkt.body).description)
+            rows = int.from_bytes(pkt.body[:8], "little")
+            ts = np.frombuffer(pkt.body[8:8 + rows * 8], dtype="<i8")
+            vals = np.frombuffer(pkt.body[8 + rows * 8:], dtype=PRIM_NP[prim])
+            return ts, vals.reshape((rows,) + tuple(shape))
+
+
+def _viewer_phase(served):
+    """Phase 40 (b): the web viewer and the ``/ws`` bridge of phase 39
+    (a)'s server, over loopback.  ``/api/info`` and ``/api/components``
+    (every store listed), ``/api/series`` of ``UI_SERIES`` (all rows
+    bitwise the history; downsampled to ``UI_LTTB_POINTS``, the history's
+    LTTB pick), ``/api/latest``, ``/api/sql`` (a count of rows),
+    ``/api/geoms`` (the n-body world has no schematic) and ``/api/drawlist``;
+    a ``WsClient`` reads ``UI_SERIES`` through ``/ws``, bitwise the TCP
+    client's."""
+    import urllib.parse
+
+    import elodin_tpu_torch.db as edb
+    from elodin_tpu_torch.db.downsample import lttb
+    from elodin_tpu_torch.db.ws import WsClient
+
+    exec_, server, _read = served["live"]
+    base = f"http://127.0.0.1:{server.port + 1}"
+    out = {}
+    stores = {c.name for c in server.db.components.values()}
+    info = json.loads(_get(base + "/api/info")[2])
+    if info["components"] != len(stores) or info["rows"] <= 0:
+        raise AssertionError(f"phase 40 (b): /api/info {info}, {len(stores)} stores")
+    listed = {c["name"] for c in json.loads(_get(base + "/api/components")[2])}
+    if listed != stores:
+        raise AssertionError(f"phase 40 (b): /api/components lists {len(listed)} of "
+                             f"{len(stores)} stores")
+    want_ts, rows = _history_rows(exec_, [UI_SERIES])
+    hist = rows[UI_SERIES]
+    q = urllib.parse.quote(UI_SERIES)
+    rt = []
+    for _ in range(UI_ROUND_TRIPS):
+        t0 = time.perf_counter()
+        body = _get(f"{base}/api/series?name={q}&max_points=4000")[2]
+        rt.append(time.perf_counter() - t0)
+    s = json.loads(body)
+    if not (np.array_equal(np.asarray(s["t"], dtype=np.int64), want_ts)
+            and np.array_equal(np.asarray(s["v"], dtype=np.float64), hist)):
+        raise AssertionError("phase 40 (b): /api/series is not bitwise the history")
+    out["series_ms"] = statistics.median(rt) * 1e3
+    s = json.loads(_get(f"{base}/api/series?name={q}&max_points={UI_LTTB_POINTS}")[2])
+    idx = lttb(want_ts.astype(np.float64), hist[:, 0], UI_LTTB_POINTS)
+    if not (len(s["t"]) == len(idx) <= UI_LTTB_POINTS
+            and np.array_equal(np.asarray(s["t"], dtype=np.int64), want_ts[idx])
+            and np.array_equal(np.asarray(s["v"], dtype=np.float64), hist[idx])):
+        raise AssertionError("phase 40 (b): the downsampled /api/series is not the "
+                             "history's LTTB pick")
+    latest = json.loads(_get(f"{base}/api/latest?name={q}")[2])
+    if latest["t"] != int(want_ts[-1]) or not np.array_equal(latest["v"], hist[-1]):
+        raise AssertionError(f"phase 40 (b): /api/latest {latest}")
+    table = edb.sql_table_name(UI_SERIES)
+    sql = json.loads(_get(base + "/api/sql?q=" + urllib.parse.quote(
+        f"select count(*) from {table}"))[2])
+    if sql["rows"] != [[len(want_ts)]]:
+        raise AssertionError(f"phase 40 (b): /api/sql count {sql['rows']}, "
+                             f"expected {len(want_ts)}")
+    geoms = json.loads(_get(base + "/api/geoms")[2])
+    if set(geoms) != {"cube", "sphere", "cylinder", "cone"}:
+        raise AssertionError(f"phase 40 (b): /api/geoms {sorted(geoms)}")
+    drawlist = json.loads(_get(base + "/api/drawlist")[2])
+    if drawlist.get("solids"):
+        raise AssertionError("phase 40 (b): a draw list for a world with no schematic")
+
+    client = edb.Client.connect(f"127.0.0.1:{server.port}")
+    ws = WsClient("127.0.0.1", server.port + 1)
+    try:
+        tcp = client.time_series(UI_SERIES)
+        rt = []
+        for _ in range(UI_ROUND_TRIPS):
+            t0 = time.perf_counter()
+            got = _ws_time_series(ws, UI_SERIES, "f64", (7,))
+            rt.append(time.perf_counter() - t0)
+        if not (np.array_equal(got[0], tcp[0]) and np.array_equal(got[1], tcp[1])
+                and np.array_equal(got[1], hist)):
+            raise AssertionError("phase 40 (b): /ws time_series is not bitwise the TCP "
+                                 "client's")
+        out["ws_ms"] = statistics.median(rt) * 1e3
+    finally:
+        ws.close()
+        client.close()
+
+    out["stores"] = len(stores)
+    out["rows"] = len(want_ts)
+    return out
+
+
+def _mp4_samples(mp4: bytes) -> int:
+    """The sample count of an MP4's one track (its stsz box)."""
+    at = mp4.index(b"stsz")
+    return int.from_bytes(mp4[at + 12:at + 16], "big")
+
+
+def _video_db(db_dir):
+    """The video-stream example's producer, its frames as H.264
+    (``stream_frames(h264=True)``, paced at its 30 Hz), into a message log
+    of a port server on a database of its own; ``/api/videos`` lists the
+    log once every frame is stored."""
+    import elodin_tpu_torch.db as edb
+    from elodin_tpu_torch.examples.video_stream import main as video_stream
+
+    server = edb.Server.start(db_dir)
+    try:
+        video_stream.stream_frames(server.addr, UI_VIDEO_FRAMES, h264=True)
+        base = f"http://127.0.0.1:{server.port + 1}"
+        deadline = time.perf_counter() + DB_WAIT_S
+        while True:
+            videos = json.loads(_get(base + "/api/videos")[2])
+            if [v["frames"] for v in videos] == [UI_VIDEO_FRAMES]:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 40 (c): /api/videos {videos}")
+            time.sleep(0.01)
+    finally:
+        server.stop()
+
+
+def _export_phase(db_dir, stored, out_dir):
+    """Phase 40 (c): ``python -m elodin_tpu_torch db export --format mcap
+    --pattern UI_MCAP_PATTERN`` in process, of the database phase 39 (a)
+    and 40 (a) left, closed; read back with ``read_mcap_full``, each
+    exported store's channel holds one message a stored row, in order, at
+    the row's time, its numbers the row's (``stored``: the rows the
+    reopen read).  Then the video-stream example's frames into a message
+    log and ``db export-videos``: one MP4, a sample a frame."""
+    import contextlib
+    import io
+
+    from elodin_tpu_torch.__main__ import main as cli
+    from elodin_tpu_torch.db.export_mcap import read_mcap_full
+
+    out = {}
+    want = {f"b{i}.{c}" for i in range(DB_BODIES) for c in ("world_pos", "world_vel")
+            if fnmatch.fnmatch(f"b{i}.{c}", UI_MCAP_PATTERN)}
+    if not want or not want <= set(stored):
+        raise AssertionError(f"phase 40 (c): {len(stored)} stores match {UI_MCAP_PATTERN}, "
+                             f"without every body's world_pos and world_vel")
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        cli(["db", "export", db_dir, "--output", out_dir, "--format", "mcap",
+             "--pattern", UI_MCAP_PATTERN])
+    out["mcap_s"] = time.perf_counter() - t0
+    gc.collect()  # the export's database: its files close
+    path = os.path.join(out_dir, os.path.basename(db_dir) + ".mcap")
+    out["mcap_bytes"] = os.path.getsize(path)
+    mcap = read_mcap_full(path)
+    out["messages"] = len(mcap.messages)
+    by_topic = {c["topic"]: cid for cid, c in mcap.channels.items()}
+    msgs = {}
+    for cid, log_time, data in mcap.messages:
+        msgs.setdefault(cid, []).append((log_time, data))
+
+    def leaves(obj):
+        if isinstance(obj, dict):
+            return [x for v in obj.values() for x in leaves(v)]
+        return [obj]
+
+    for name, (ts, values) in stored.items():
+        got = msgs.get(by_topic.get("/" + name.replace(".", "/")), [])
+        if len(got) != len(ts):
+            raise AssertionError(f"phase 40 (c): {name} has {len(got)} messages, "
+                                 f"{len(ts)} rows stored")
+        for k, (log_time, data) in enumerate(got):
+            if (log_time != int(ts[k]) * 1000
+                    or not np.array_equal(np.asarray(leaves(json.loads(data)), dtype=np.float64),
+                                          np.asarray(values[k], dtype=np.float64).ravel())):
+                raise AssertionError(f"phase 40 (c): {name} message {k} is not its stored row")
+    out["exported_stores"] = len(stored)
+    out["exported_rows"] = sum(len(ts) for ts, _ in stored.values())
+
+    video_db = os.path.join(out_dir, "video_db")
+    _video_db(video_db)
+    video_dir = os.path.join(out_dir, "videos")
+    with contextlib.redirect_stdout(log):
+        cli(["db", "export-videos", video_db, "--output", video_dir])
+    # the log is named by its message id: a client's send_msg carries no name
+    mp4s = sorted(f for f in os.listdir(video_dir) if f.endswith(".mp4"))
+    if len(mp4s) != 1:
+        raise AssertionError(f"phase 40 (c): export-videos wrote {mp4s}, expected one MP4")
+    with open(os.path.join(video_dir, mp4s[0]), "rb") as f:
+        mp4 = f.read()
+    out["mp4_samples"], out["mp4_bytes"] = _mp4_samples(mp4), len(mp4)
+    if out["mp4_samples"] != UI_VIDEO_FRAMES:
+        raise AssertionError(f"phase 40 (c): the MP4 holds {out['mp4_samples']} samples, "
+                             f"{UI_VIDEO_FRAMES} frames were streamed")
+    return out
+
+def _db_client_phase(device=None):
+    """Phase 40 (d): the db-client example end to end.  Its ball sim is an
+    s10 child (``python -m elodin_tpu_torch run ...``, no ``--device``: the
+    sim CLI's default, the card, with no CPU fallback) on a free port for
+    ``DBC_TICKS`` ticks; the client sees ``ball.world_pos``, its SQL returns
+    5 rows and its write back is read back; then the child's whole process
+    group is gone."""
+    from elodin_tpu_torch.examples.db_client import main as db_client
+
+    out = db_client.run(f"127.0.0.1:{_free_port()}", device=device,
+                        env={"ELODIN_MAX_TICKS": str(DBC_TICKS)})
+    if "ball.world_pos" not in out["components"] or out["sql_rows"] != 5:
+        raise AssertionError(f"phase 40 (d): components {out['components'][:8]}, "
+                             f"sql rows {out['sql_rows']}")
+    if float(out["written"]) != 21.5 or len(out["latest"]) != 7:
+        raise AssertionError(f"phase 40 (d): wrote {out['written']}, latest {out['latest']}")
+    try:
+        os.killpg(out["pgid"], 0)
+    except ProcessLookupError:
+        pass
+    else:
+        raise AssertionError(f"phase 40 (d): the sim's process group {out['pgid']} outlived "
+                             f"stop")
+    return out
+
+
+def _telemetry_ui_phase(kernels, served, tmp, plain_ms, tcp_ms, device="cuda"):
+    """Phase 40: the mirror, the web viewer and ``/ws``, MCAP and MP4
+    export, and db-client, on phase 39 (a)'s served n-body.  Adds the
+    mirrored run's K1 and K2 launches (``telemetry_ui``) to the kernels
+    line."""
+    t0 = time.perf_counter()
+    db_dir = os.path.join(tmp, "nbody")
+    a = _mirror_phase(served, UI_TICKS, device)
+    t1 = time.perf_counter()
+    print(f"phase 40 (a), a MirrorWorld on phase 39's served n-body ({DB_BODIES} bodies on "
+          f"K2, f64, {a['series']} series): launches {a['launches']} in "
+          f"Exec.run({UI_TICKS}); {a['ms_per_tick']:.4g} ms/tick mirrored (run to flush; "
+          f"{a['run_ms_per_tick']:.4g} the run alone) against phase 39's {plain_ms:.4g} "
+          f"without a server; device trace of {DB_TRACE_TICKS} mirrored ticks: "
+          f"{a['ops_per_tick']:.1f} device ops/tick, idle share {100 * a['idle_share']:.2f}%; "
+          f"subscribed in {a['subscribe_s']:.3f} s; the live sink received {a['live_rows']} "
+          f"rows ({a['live_rows_per_s']:.6g} rows/s into the mirror, run start to the last "
+          f"row in {a['sink_s']:.3f} s), backfill fetched {a['backfilled_rows']}; value_at "
+          f"of all {a['series']} x {a['rows']} rows bitwise the history "
+          f"({a['check_s']:.2f} s); (a) {t1 - t0:.1f} s")
+    b = _no_launches("phase 40 (b), the web viewer and /ws", lambda: _viewer_phase(served))
+    print(f"phase 40 (b), the web viewer of that server: /api/info and /api/components "
+          f"({b['stores']} stores), /api/series of {UI_SERIES} ({b['rows']} rows) bitwise the "
+          f"history and its LTTB pick at {UI_LTTB_POINTS} points, /api/latest, /api/sql "
+          f"count, /api/geoms, /api/drawlist; round trips: /api/series {b['series_ms']:.4g} "
+          f"ms, /ws time_series {b['ws_ms']:.4g} ms (bitwise the TCP client's), phase 39's "
+          f"TCP time_series {tcp_ms:.4g} ms (medians); (b) {time.perf_counter() - t1:.1f} s")
+    # (d)'s child spends ~9 s importing torch: it starts now, in a thread
+    # of its own, beside phase 39 (a)'s reopen and (c), which are host work
+    # in this process with no figure but the export's time
+    client = {}
+
+    def db_client():
+        start = time.perf_counter()
+        try:
+            client["out"] = _db_client_phase(None if device == "cuda" else device)
+        except BaseException as e:  # noqa: BLE001  (raised again below)
+            client["error"] = e
+        client["s"] = time.perf_counter() - start
+
+    def reopen_and_export():
+        thread = threading.Thread(target=db_client, daemon=True)
+        thread.start()
+        start = time.perf_counter()
+        stored = _close_served(served, db_dir, DB_TICKS, UI_MCAP_PATTERN)
+        reopen_s = time.perf_counter() - start
+        start = time.perf_counter()
+        out = _export_phase(db_dir, stored, os.path.join(tmp, "export"))
+        out["s"], out["reopen_s"] = time.perf_counter() - start, reopen_s
+        thread.join(timeout=DB_WAIT_S + CHILD_TIMEOUT_S)
+        if thread.is_alive():
+            raise AssertionError("phase 40 (d): the db-client example never ended")
+        if "error" in client:
+            raise client["error"]
+        return out
+
+    c = _no_launches("phase 40 (c) and (d), export and db-client", reopen_and_export)
+    d = client["out"]
+    print(f"phase 39 (a)'s reopen: {DB_BODIES * 2} series as read, {c['reopen_s']:.1f} s")
+    print(f"phase 40 (c), db export --format mcap --pattern {UI_MCAP_PATTERN!r} of the "
+          f"closed database: {c['messages']} messages, {c['mcap_bytes']} bytes in "
+          f"{c['mcap_s']:.3f} s; {c['exported_stores']} stores, {c['exported_rows']} rows, "
+          f"one message a row, bitwise; the video-stream example's frames (H.264) through a "
+          f"server into a log of its own, export-videos: {c['mp4_samples']} samples "
+          f"({c['mp4_bytes']} bytes) for {UI_VIDEO_FRAMES} frames; (c) {c['s']:.1f} s")
+    print(f"phase 40 (d), the db-client example, beside the reopen and (c): its ball sim an "
+          f"s10 child on the card, start-up (spawn to 5 rows served) {d['startup_s']:.3f} s; "
+          f"{len(d['components'])} components, SQL {d['sql_rows']} rows, the write back read "
+          f"back ({float(d['written'])}); the child's process group gone after stop; (d) "
+          f"{client['s']:.1f} s")
+    print(f"phase 40: {time.perf_counter() - t0:.1f} s, phase 39 (a)'s reopen "
+          f"{c['reopen_s']:.1f} s of it")
+    for entry in kernels:
+        entry["telemetry_ui"] = {"launches": a["launches"][entry["name"]]}
+
+
 def _db_phase(kernels):
-    """Phase 39: the telemetry database fed from the card.  Adds the
-    served run's K1 and K2 launches (``telemetry_db``) to the kernels line."""
+    """Phases 39 and 40: the telemetry database fed from the card.  Adds the
+    served run's K1 and K2 launches (``telemetry_db``) to the kernels line;
+    phase 40 (``_telemetry_ui_phase``) mirrors, views and exports phase 39
+    (a)'s served n-body, whose server stays up until phase 40 (b) is done."""
     import shutil
     import tempfile
 
@@ -3700,6 +4213,7 @@ def _db_phase(kernels):
     print(f"phase 39: open files {resource.getrlimit(resource.RLIMIT_NOFILE)} (was {soft})")
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="chip-smoke-db-", dir=os.path.join(REPO, "build"))
+    a = {}
     try:
         a = _served_nbody(el, DB_BODIES, DB_TICKS, os.path.join(tmp, "nbody"))
         if a["launches"]["pairwise_gravity"] != DB_TICKS:
@@ -3715,8 +4229,9 @@ def _db_phase(kernels):
               f"{DB_TICKS} commits (commit_hist) {a['commit_ms']:.4g} ms; client "
               f"time_series round trip {a['time_series_ms']:.4g} ms (median of "
               f"{2 * DB_BODIES}); {2 * DB_BODIES} series of {DB_TICKS + 1} rows bitwise the "
-              f"history, and again after the reopen; device trace of {DB_TRACE_TICKS} "
-              f"served ticks: {a['ops_per_tick']:.1f} device ops/tick, idle share "
+              f"history (and after the reopen, checked once phase 40 (b) is done); device "
+              f"trace of {DB_TRACE_TICKS} served ticks: {a['ops_per_tick']:.1f} device "
+              f"ops/tick, idle share "
               f"{100 * a['idle_share']:.2f}%")
         b = _no_launches("phase 39 (b), three-body through run and resume", lambda: _db_run_resume(
             el, os.path.join(tmp, "three_body"), os.path.join(tmp, "csv")))
@@ -3731,11 +4246,16 @@ def _db_phase(kernels):
         print(f"phase 39 (c), external control on the card: the client's write reached the "
               f"Exec in {c['write_seen_ms']:.3g} ms; wire_vel 2.5 after the next tick, 10.0 "
               f"after 4")
+        print(f"phase 39: {time.perf_counter() - t0:.1f} s")
+        for entry in kernels:
+            entry["telemetry_db"] = {"launches": a["launches"][entry["name"]]}
+        _clock("phase 39")
+        _telemetry_ui_phase(kernels, a, tmp, a["plain_ms_per_tick"], a["time_series_ms"])
     finally:
+        if "live" in a:  # a failure before phase 40 closed it
+            a["live"][1].stop()
+            del a["live"]
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"phase 39: {time.perf_counter() - t0:.1f} s")
-    for entry in kernels:
-        entry["telemetry_db"] = {"launches": a["launches"][entry["name"]]}
 
 
 def main() -> int:
@@ -3808,13 +4328,13 @@ def main() -> int:
     _flight_phase(kernels)
     _clock("phase 38")
     _db_phase(kernels)
-    _clock("phase 39")
+    _clock("phase 40")
 
     if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
            for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
 
-    # 40. results
+    # 41. results
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -19,7 +19,8 @@ gravity (``ops.pairwise``) have hand-written CUDA kernels.
 over a mesh of devices: ``make_mesh``, ``sharded_step``,
 ``BatchedCampaign(mesh=)``, ``sixdof_rollout_sharded``,
 ``pairwise_gravity_sharded`` and ``parallel.dryrun.dryrun_multichip``.
-The package imports torch and numpy, never JAX.
+``el.s10`` supervises a sim and its co-processes (recipes, restart
+policies, readiness and liveness probes).  The package imports torch and numpy, never JAX.
 """
 
 from __future__ import annotations
@@ -277,3 +278,4 @@ class World(WorldBuilder):
 
 from . import linalg as linalg  # noqa: E402,F401
 from . import monte_carlo as monte_carlo  # noqa: E402,F401
+from . import s10 as s10  # noqa: E402,F401

@@ -12,7 +12,8 @@ database on its address (``db.server.serve_exec``; if the server cannot
 start it warns and steps headless), into ``db_path`` or
 ``ELODIN_DB_PATH`` when given, where it also captures the sim's sources;
 ``ELODIN_RESUME=1`` resumes from that database's latest rows, and
-``ELODIN_KEEP_ALIVE=1`` keeps serving after the last tick.
+``ELODIN_KEEP_ALIVE=1`` keeps serving after the last tick.  The database
+closes when ``run`` returns, and the returned ``Exec`` no longer feeds it.
 ``bench --profile`` writes
 ``profile-metrics.json`` and the ``torch.profiler`` table of one tick,
 ``step.torch_profile.txt``, into ``profile_output/`` beside the sim.
@@ -64,6 +65,20 @@ def _parse_args(argv: list[str]):
     if not argv:
         argv = ["run"]
     return parser.parse_args(argv)
+
+
+def serve_addr(argv: list[str]) -> str:
+    """The address a client reaches a sim on when the sim runs with these
+    CLI arguments: ``run ADDR``'s host (a wildcard host as loopback), else
+    loopback at the default port."""
+    rest = argv
+    if argv and argv[0] in _COMMANDS:
+        rest = argv[1:] if argv[0] == "run" else []
+    if rest and not rest[0].startswith("-"):
+        host, _, port = rest[0].rpartition(":")
+        host = host.strip("[]")
+        return f"{'127.0.0.1' if host in ('', '::', '0.0.0.0') else host}:{port}"
+    return "127.0.0.1:2240"
 
 
 def run_cli(world, system, simulation_rate=120.0, generate_real_time=False,
@@ -223,6 +238,11 @@ def run_cli(world, system, simulation_rate=120.0, generate_real_time=False,
         liveness.stop()
         if server is not None:
             server.stop()
+            # the database closes with the run: a handle left to the garbage
+            # collector closes whenever it is collected, cutting the stores'
+            # files to its length under a later run's rows (a resume)
+            exec_.on_commit_batch = None
+            server.db.close()
         metrics.print_summary()
         wall = time.perf_counter() - wall_start
         metrics.write_summary_json(

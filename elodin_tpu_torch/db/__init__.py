@@ -7,9 +7,7 @@ user API, ``storage`` for the store, ``vtable``/``msgs``/``postcard`` for
 the codec.
 
 A host-only copy of ``elodin_tpu/db/__init__.py``:
-the port imports nothing of the JAX package.  ``MirrorWorld``,
-``SeriesCache`` and ``TelemetryCache`` (``mirror.py``) are not ported yet
-(ROADMAP.md §1 item 6, the database's second half).
+the port imports nothing of the JAX package.
 """
 
 from .client import (  # noqa: F401
@@ -32,5 +30,6 @@ from .client import (  # noqa: F401
     u32,
     u64,
 )
+from .mirror import MirrorWorld, SeriesCache, TelemetryCache  # noqa: F401
 from .storage import Database  # noqa: F401
 from .vtable import component_id_of  # noqa: F401

@@ -14,10 +14,7 @@ Usage:
     python -m elodin_tpu_torch db gen-cpp <path> --output header.hpp
 
 A host-only copy of ``elodin_tpu/db/__main__.py``:
-the port imports nothing of the JAX package.  ``export --format mcap`` and
-``export-videos`` raise ``NotImplementedError``: their writers
-(``export_mcap.py``, ``video.py``) belong to the database's second half
-(ROADMAP.md §1 item 6).
+the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -253,9 +250,24 @@ def cmd_export(args):
 
     db = Database(args.path)
     if args.format == "mcap":
-        raise NotImplementedError(
-            "export --format mcap: the MCAP writer is not ported "
-            "(ROADMAP.md §1 item 6, the database's second half)")
+        from .export_mcap import export_mcap
+
+        out = Path(args.output)
+        if not out.suffix:
+            out.mkdir(parents=True, exist_ok=True)
+            # name the archive after the database directory (export_mcap.rs
+            # run(): {db_name}.mcap + {db_name}.foxglove-layout.json)
+            out = out / f"{Path(args.path).name or 'elodin-db'}.mcap"
+        n = export_mcap(
+            db, str(out),
+            pattern=args.pattern,
+            include_private=args.include_private,
+            all_assets=args.all_assets,
+            epoch_offset_us=args.epoch_offset_us,
+            max_embed_mb=args.max_embed_mb,
+        )
+        print(f"exported {n} messages -> {out}")
+        return
     if args.join and args.format == "csv":
         Path(args.output).mkdir(parents=True, exist_ok=True)
         export_csv_joined(db, str(Path(args.output) / "joined.csv"),
@@ -516,10 +528,57 @@ def cmd_time_align(args):
 
 
 def cmd_export_videos(args):
-    """Export H.264 video message logs to MP4 files: not ported."""
-    raise NotImplementedError(
-        "export-videos: the video muxer is not ported "
-        "(ROADMAP.md §1 item 6, the database's second half)")
+    """Export H.264 video message logs to MP4 files (parity:
+    libs/db/src/export_videos.rs — Annex-B logs are muxed directly; raw
+    sensor-camera RGBA logs would need an H.264 encoder, which is not
+    bundled, so they are dumped as .rgba.bin + a shape sidecar)."""
+    import fnmatch
+    import json as _json
+
+    from .video import export_h264_log, find_nal, NAL_SPS
+
+    db = Database(args.path)
+    out_dir = Path(args.output)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    names = {}
+    for mid, log in db.msg_logs.items():
+        name = getattr(log.metadata, "name", None)
+        names[mid] = name or mid.hex()
+    exported = 0
+    for mid, log in sorted(db.msg_logs.items(), key=lambda kv: names[kv[0]]):
+        name = names[mid]
+        if args.pattern and not fnmatch.fnmatch(name, args.pattern):
+            continue
+        if not log.entries:
+            continue
+        safe = name.replace("/", "_")
+        if any(find_nal(p, NAL_SPS) for _, p in log.entries[:20]):
+            stats = export_h264_log(
+                log.entries, name, out_dir / f"{safe}.mp4", args.fps
+            )
+            if stats:
+                print(
+                    f"  {name}: {stats['frames']} frames, "
+                    f"{stats['duration_s']:.1f}s, "
+                    f"{stats['width']}x{stats['height']} @ {stats['fps']:g} fps"
+                    f" -> {out_dir / (safe + '.mp4')}"
+                )
+                exported += 1
+        elif args.raw:
+            blob = b"".join(p for _, p in log.entries)
+            (out_dir / f"{safe}.rgba.bin").write_bytes(blob)
+            (out_dir / f"{safe}.rgba.json").write_text(
+                _json.dumps({"frames": len(log.entries),
+                             "frame_bytes": len(log.entries[0][1])})
+            )
+            print(f"  {name}: {len(log.entries)} raw frames (no SPS; "
+                  "dumped .rgba.bin — no H.264 encoder bundled)")
+            exported += 1
+    if exported == 0:
+        print("no video message logs found"
+              + (f" matching {args.pattern!r}" if args.pattern else ""))
+    else:
+        print(f"exported {exported} video logs -> {out_dir}")
 
 
 def cmd_truncate(args):

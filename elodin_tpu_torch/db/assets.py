@@ -6,9 +6,7 @@ Assets (KDL schematics, GLB models, skyboxes) are named blobs under
 ``http://<host>:<tcp_port + 1>/assets/<key>`` as the editor expects.
 
 A host-only copy of ``elodin_tpu/db/assets.py``:
-the port imports nothing of the JAX package.  The web viewer's ``/api/*``
-routes (``webui.py``) and the ``/ws`` bridge (``ws.py``) belong to the
-database's second half (ROADMAP.md §1 item 6) and are not served yet.
+the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -71,20 +69,94 @@ class AssetHttpServer:
     (assets_http.rs assets_http_addr)."""
 
     def __init__(self, store: AssetStore, port: int = 0,
-                 host: str = "127.0.0.1", db=None):
+                 host: str = "127.0.0.1", db=None, ws_tcp_port=None):
         self.store = store
         self.db = db  # optional Database for /healthz and /metrics
+        # GET /ws upgrades to a WebSocket carrying the FULL DB wire
+        # protocol, bridged to the TCP server at this loopback port
+        # (reference: the impeller2 ws transport, libs/db/src/lib.rs)
+        self.ws_tcp_port = ws_tcp_port
+        # extensible GET routes: prefix -> fn(path, query) -> (status, ctype,
+        # body); the web UI (db/webui.py) registers /api/* and / here
+        self.routes: dict[str, object] = {}
+        if db is not None:
+            try:
+                from .webui import register_routes
+
+                register_routes(self.routes, db)
+            except Exception as e:  # noqa: BLE001
+                import sys as _sys
+
+                # never silently: every /api/* request would 404 with no
+                # hint that the viewer failed to register
+                print(f"warning: web viewer unavailable: {e}",
+                      file=_sys.stderr)
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
-            # Every handler path sets Content-Length (or replies 204), so
-            # HTTP/1.1 keep-alive is safe.
+            # RFC 6455 requires the 101 upgrade on HTTP/1.1 — browsers
+            # reject an 'HTTP/1.0 101' status line outright (the default
+            # protocol_version here is 1.0).  Every handler path sets
+            # Content-Length (or replies 204), so 1.1 keep-alive is safe.
             protocol_version = "HTTP/1.1"
 
             def log_message(self, *args):
                 pass
 
             def do_GET(self):
+                from urllib.parse import parse_qs, urlparse
+
+                parsed = urlparse(self.path)
+                if parsed.path == "/ws" and outer.ws_tcp_port is not None:
+                    from . import ws as _ws
+
+                    fields = _ws.handshake_fields(self.headers)
+                    if fields is None:
+                        self.send_response(400)
+                        self.send_header("Content-Length", "0")
+                        self.end_headers()
+                        return
+                    self.send_response(101)
+                    for k, v in fields.items():
+                        self.send_header(k, v)
+                    self.end_headers()
+                    self.wfile.flush()
+                    try:
+                        # occupies this handler thread for the connection
+                        _ws.serve_bridge(self.rfile, self.connection,
+                                         outer.ws_tcp_port)
+                    finally:
+                        self.close_connection = True
+                    return
+                route = None
+                for prefix in sorted(outer.routes, key=len, reverse=True):
+                    if parsed.path == prefix or (
+                        len(prefix) > 1 and prefix.endswith("/")
+                        and parsed.path.startswith(prefix)
+                    ):
+                        route = outer.routes[prefix]
+                        break
+                if route is not None:
+                    query = {
+                        k: v[-1] for k, v in parse_qs(parsed.query).items()
+                    }
+                    try:
+                        status, ctype, body = route(parsed.path, query)
+                    except Exception as e:  # surface handler errors as 500s
+                        status, ctype = 500, "text/plain"
+                        body = str(e).encode()
+                    if status == 200:
+                        self._ok(body, ctype)
+                    else:
+                        # error text goes in the BODY only — send_error would
+                        # echo it into the status line, and route errors can
+                        # contain user-controlled text (response splitting)
+                        self.send_response(status)
+                        self.send_header("Content-Type", "text/plain")
+                        self.send_header("Content-Length", str(len(body)))
+                        self.end_headers()
+                        self.wfile.write(body)
+                    return
                 if self.path == "/healthz":
                     self._ok(b"ok", "text/plain")
                     return

@@ -6,7 +6,10 @@ Same public surface: ``Field``/``f64[3].labeled(...)`` schemas,
 ``sql``, and ``Server.start`` for an embedded database.
 
 A host-only copy of ``elodin_tpu/db/client.py``:
-the port imports nothing of the JAX package.
+the port imports nothing of the JAX package.  Its reader thread reads the
+socket a chunk at a time, not a packet's header and body apart, and a
+component stream skips a table of no subscribed component by its vtable's
+static layout before realizing it.
 """
 
 from __future__ import annotations
@@ -172,32 +175,32 @@ class _Conn:
         self._stream_handlers.append(fn)
 
     def _read_loop(self) -> None:
+        # one recv a chunk, every whole packet in it dispatched: a recv a
+        # packet's header and another its body released the interpreter
+        # lock twice a packet, which on a many-core host hands it to the
+        # server's and the stream consumer's threads every time
+        buf = bytearray()
         try:
             while True:
-                hdr = self._recv_exact(4)
-                if hdr is None:
+                chunk = self.sock.recv(1 << 16)
+                if not chunk:
                     return
-                n = int.from_bytes(hdr, "little")
-                body = self._recv_exact(n)
-                if body is None:
-                    return
-                pkt = M.parse_packet(body)
-                q = self._pending.get(pkt.req_id)
-                if q is not None:
-                    q.put(pkt)
-                for fn in self._stream_handlers:
-                    fn(pkt)
+                buf += chunk
+                pos = 0
+                while len(buf) - pos >= 4:
+                    n = int.from_bytes(buf[pos:pos + 4], "little")
+                    if len(buf) - pos - 4 < n:
+                        break
+                    pkt = M.parse_packet(bytes(buf[pos + 4:pos + 4 + n]))
+                    pos += 4 + n
+                    q = self._pending.get(pkt.req_id)
+                    if q is not None:
+                        q.put(pkt)
+                    for fn in self._stream_handlers:
+                        fn(pkt)
+                del buf[:pos]
         except OSError:
             pass
-
-    def _recv_exact(self, n: int):
-        buf = b""
-        while len(buf) < n:
-            chunk = self.sock.recv(n - len(buf))
-            if not chunk:
-                return None
-            buf += chunk
-        return buf
 
     def close(self) -> None:
         try:
@@ -407,6 +410,8 @@ class ComponentStream:
         self._q = q
         self._names = set(names) if names else None
         self._vtables: dict[bytes, object] = {}
+        # vtable id -> its fields' component ids (None: not a static layout)
+        self._vt_cids: dict[bytes, list | None] = {}
         self._id_to_name: dict[int, str] = {}
         self._req_id = req_id
         self._closed = False
@@ -424,10 +429,11 @@ class ComponentStream:
             if pkt.ty == M.TY_MSG and pkt.id == M.VTableMsg.ID:
                 vtm = M.VTableMsg.decode(pkt.body)
                 self._vtables[vtm.id] = vtm.vtable
+                self._vt_cids.pop(vtm.id, None)
                 continue
             if pkt.ty == M.TY_TABLE:
                 vt = self._vtables.get(pkt.id)
-                if vt is None:
+                if vt is None or not self._wanted(pkt.id, vt):
                     continue
                 values = {}
                 ts = now_timestamp_us()
@@ -443,6 +449,22 @@ class ComponentStream:
                         values[name] = _to_array(f["data"], f["ty"], f["shape"])
                 if values:
                     return StreamRow(ts, values)
+
+    def _wanted(self, vt_id: bytes, vt) -> bool:
+        """Whether a table of this vtable can hold a subscribed component,
+        read from its static layout without realizing the table (a table
+        of another component is skipped as the loop below would skip it)."""
+        if self._names is None:
+            return True
+        cids = self._vt_cids.get(vt_id, False)
+        if cids is False:
+            layout = vt.static_layout()
+            cids = None if layout is None else [f["component_id"] for f in layout]
+            self._vt_cids[vt_id] = cids
+        if cids is None:
+            return True
+        return any(cid is not None and self._id_to_name.get(cid, f"{cid:016x}") in self._names
+                   for cid in cids)
 
     def close(self) -> None:
         self._closed = True

@@ -178,11 +178,11 @@ def save_archive(db, path: str, fmt: str = "arrow_ipc",
 
 
 def export_mcap(db, path: str) -> int:
-    """Whole-DB single-file MCAP export (libs/db/src/export_mcap.rs): not
-    ported."""
-    raise NotImplementedError(
-        "export_mcap: the MCAP writer is not ported "
-        "(ROADMAP.md §1 item 6, the database's second half)")
+    """Whole-DB single-file MCAP export (libs/db/src/export_mcap.rs);
+    see elodin_tpu_torch.db.export_mcap for the writer."""
+    from .export_mcap import export_mcap as _impl
+
+    return _impl(db, path)
 
 
 def export_csv_joined(db, out_path: str,

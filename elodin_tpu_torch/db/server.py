@@ -9,7 +9,10 @@ never blocks the simulation step loop — the sim thread appends to the store
 under a lock and subscribers drain on their own tasks.
 
 A host-only copy of ``elodin_tpu/db/server.py``:
-the port imports nothing of the JAX package.
+the port imports nothing of the JAX package.  A real-time stream lays out a
+store's rows' packets with numpy and sends a batch's packets in chunks
+(``_STREAM_CHUNK``), not a send a packet: the same bytes in the same
+order.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import numpy as np
 from . import msgs as M
 from .storage import Database, now_timestamp_us
 from .vtable import VTable, build_table_vtable
+
+_STREAM_CHUNK = 1 << 18  # bytes of a real-time batch sent at once
 
 
 class Connection:
@@ -439,7 +444,15 @@ class Connection:
                     sent_len.setdefault(cid, c.len)
         while True:
             component_ids, ts = await queue.get()
+            # the batch's packets go out in chunks of ~256 KiB, in order: a
+            # send a packet released the interpreter lock a row, which on a
+            # many-core host hands it to the subscriber's threads every time
+            out: list[bytes] = []
+            size = 0
             for cid in component_ids:
+                if size >= _STREAM_CHUNK:
+                    await self.send(b"".join(out))
+                    out, size = [], 0
                 with self.db.lock:
                     c = self.db.components.get(cid)
                     if c is None:
@@ -470,16 +483,27 @@ class Connection:
                           8 + pad, c.row_nbytes)],
                         timestamp_offset=0,
                     )
-                    await self.send(M.VTableMsg(vt_id, vt).packet(req_id))
+                    pkt = M.VTableMsg(vt_id, vt).packet(req_id)
+                    out.append(pkt)
+                    size += len(pkt)
                     sent_vts[cid] = vt_id
                 pad = (-8) % c.dtype.itemsize
-                for i in range(len(ts_rows)):
-                    body = (
-                        np.int64(ts_rows[i]).tobytes()
-                        + b"\x00" * pad
-                        + val_rows[i].tobytes()
-                    )
-                    await self.send(M.frame(M.TY_TABLE, vt_id, body, req_id))
+                # every row's packet at once: its header, the i64
+                # timestamp, the pad and the row, as M.frame lays one out
+                n_rows = len(ts_rows)
+                row = np.ascontiguousarray(val_rows).reshape(n_rows, -1).view(np.uint8)
+                body_len = 8 + pad + row.shape[1]
+                pkts = np.zeros((n_rows, 4 + M.PACKET_HEADER_LEN + body_len), np.uint8)
+                pkts[:, :8] = np.frombuffer(
+                    (M.PACKET_HEADER_LEN + body_len).to_bytes(4, "little")
+                    + bytes([M.TY_TABLE]) + vt_id + bytes([req_id]), np.uint8)
+                pkts[:, 8:16] = np.ascontiguousarray(ts_rows, "<i8").view(np.uint8).reshape(
+                    n_rows, 8)
+                pkts[:, 16 + pad:] = row
+                out.append(pkts.tobytes())
+                size += pkts.nbytes
+            if out:
+                await self.send(b"".join(out))
 
     async def on_GetTimeSeries(self, msg: M.GetTimeSeries, req_id: int) -> None:
         store = self.db.components.get(msg.component_id)
@@ -1094,6 +1118,7 @@ class Server:
             if self.port is not None:
                 self.assets_http = AssetHttpServer(
                     self.db.assets, port=self.port + 1, db=self.db,
+                    ws_tcp_port=self.port,
                 )
         except OSError:
             self.assets_http = None

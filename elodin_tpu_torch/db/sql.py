@@ -20,7 +20,9 @@ runs with ``PRAGMA query_only=ON`` — there is no writable surface and no
 
 A host-only copy of ``elodin_tpu/db/sql.py``:
 the port imports nothing of the JAX package.  pyarrow is imported where a
-table is made, so importing this module (the client does) needs none.
+table is made, so importing this module (the client does) needs none.  The
+sqlite mirror makes a store's table when a query first names it (the JAX
+package's makes every table at the first query).
 """
 
 from __future__ import annotations
@@ -92,7 +94,11 @@ class _SqlEngine:
             except sqlite3.OperationalError:
                 pass
 
-    def sync(self, db) -> None:
+    def sync(self, db, words: set[str] | None = None) -> None:
+        """Mirror the stores' new rows; with ``words`` (a query's
+        identifiers, lower case), only the stores whose tables it names: a
+        table is made, and costs sqlite a schema change, when a query
+        first names it."""
         with self.lock:
             # snapshot under db.lock (cheap numpy copies only), then build
             # the sqlite mirror with the lock RELEASED — holding db.lock
@@ -104,6 +110,8 @@ class _SqlEngine:
                     name = sanitize_sql_table_name(
                         store.name or f"c_{store.component_id:x}"
                     )
+                    if words is not None and name.lower() not in words:
+                        continue
                     n = store.len
                     done = self.loaded.get(store.component_id)
                     cols = (
@@ -197,6 +205,10 @@ def _base_table(query: str) -> str | None:
     return f'"{m.group(2) or m.group(1)}"'
 
 
+_SCHEMA_TABLES = {"sqlite_master", "sqlite_schema", "sqlite_temp_master",
+                  "sqlite_temp_schema"}
+
+
 def run_sql(db, query: str) -> pa.Table:
     import pyarrow as pa
 
@@ -215,7 +227,10 @@ def run_sql(db, query: str) -> pa.Table:
     if engine is None:
         engine = _SqlEngine()
         db._sql_engine = engine
-    engine.sync(db)
+    # a query reads only the tables it names, but the schema tables list
+    # every one
+    words = {w.lower() for w in re.findall(r"[A-Za-z0-9_]+", query)}
+    engine.sync(db, None if words & _SCHEMA_TABLES else words)
 
     # fft/fftfreq projections: strip them from the SELECT list, run the
     # relational query, then post-process the named columns with numpy

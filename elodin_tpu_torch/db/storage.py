@@ -15,7 +15,8 @@ in-memory arrays.  Enough for sim serving, export, and replay; a C++ mmap
 engine can replace the hot path behind the same interface.
 
 A host-only copy of ``elodin_tpu/db/storage.py``:
-the port imports nothing of the JAX package.
+the port imports nothing of the JAX package.  ``Database.close`` (the
+port's own) closes every store and message log at once.
 """
 
 from __future__ import annotations
@@ -126,6 +127,8 @@ class ComponentStore:
         self.values = np.resize(self.values, (new_cap, self.elem_count))
 
     def append(self, timestamp: int, data: bytes | np.ndarray) -> None:
+        if getattr(self, "_closed", False):
+            raise ValueError(f"store {self.name!r} is closed")
         arr = (
             np.frombuffer(data, dtype=self.dtype, count=self.elem_count)
             if isinstance(data, (bytes, bytearray, memoryview))
@@ -144,6 +147,8 @@ class ComponentStore:
             self._data_file.write(arr.tobytes())
 
     def append_batch(self, timestamps: np.ndarray, values: np.ndarray) -> None:
+        if getattr(self, "_closed", False):
+            raise ValueError(f"store {self.name!r} is closed")
         n = len(timestamps)
         self._grow(n)
         self.timestamps[self.len : self.len + n] = timestamps
@@ -187,6 +192,19 @@ class ComponentStore:
         elif self._ts_file is not None:
             self._ts_file.flush()
             self._data_file.flush()
+
+    def close(self) -> None:
+        """Write out and release the files; the rows stay readable in
+        memory, and an append raises.  A native store left to the garbage
+        collector instead closes whenever it is collected, cutting the files
+        to its own length, which may be behind a later handle's."""
+        if self._native is not None:
+            self._native.close()
+        elif self._ts_file is not None:
+            self._ts_file.close()
+            self._data_file.close()
+        self._native = self._ts_file = self._data_file = None
+        self._closed = True
 
     @staticmethod
     def load(path: Path) -> "ComponentStore":
@@ -291,6 +309,11 @@ class MsgLog:
         if self._file is not None:
             self._file.flush()
 
+    def close(self) -> None:
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+
 
 class Database:
     """In-process DB state shared by server connections and embedded sims."""
@@ -386,3 +409,12 @@ class Database:
             s.flush()
         for m in self.msg_logs.values():
             m.flush()
+
+    def close(self) -> None:
+        """Close every store and message log now (``ComponentStore.close``),
+        so that a later handle on the same directory, in this process or
+        another, never meets this one's close."""
+        for s in self.components.values():
+            s.close()
+        for m in self.msg_logs.values():
+            m.close()

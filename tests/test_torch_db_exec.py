@@ -259,6 +259,39 @@ def test_world_run_with_a_database_then_resumed(tmp_path, monkeypatch):
     assert TDatabase(str(tmp_path / "db")).by_name("a.world_pos").len == 2 * 21
 
 
+def test_a_resumed_run_keeps_its_rows_whatever_the_first_runs_leftovers(tmp_path, monkeypatch):
+    """Two ``World.run`` calls on one database in one process, the second
+    resumed, with the garbage collector held off until both are done (its
+    timing is not the program's to choose): the first run's database must
+    not outlive it, or its stores' close, when the collector gets to them,
+    cuts the files they share back to the first run's length.  The
+    resumed run's rows are all there on reopening."""
+    import gc
+
+    from elodin_tpu_torch import native
+
+    monkeypatch.setattr(sys, "argv", [ttb.__file__, "run", "127.0.0.1:0", "--device", "cpu"])
+    monkeypatch.setenv("ELODIN_DB_PATH", str(tmp_path / "db"))
+    monkeypatch.setenv("ELODIN_MAX_TICKS", "20")
+    gc.disable()
+    try:
+        ttb.build_world().run(ttb.build_system(), simulation_rate=1.0 / ttb.SIM_TIME_STEP)
+        monkeypatch.setenv("ELODIN_RESUME", "1")
+        monkeypatch.setenv("ELODIN_MAX_TICKS", "40")
+        resumed = ttb.build_world().run(ttb.build_system(),
+                                        simulation_rate=1.0 / ttb.SIM_TIME_STEP)
+        assert resumed.tick() == 40
+    finally:
+        gc.enable()
+    del resumed
+    gc.collect()
+    db = TDatabase(str(tmp_path / "db"))
+    assert native.available() == (db.by_name("a.world_pos")._native is not None)
+    for name in ("a.world_pos", "Globals.tick"):
+        assert db.by_name(name).len == 2 * 21, name
+    assert int(db.by_name("Globals.tick").latest()[1].reshape(-1)[0]) == 40
+
+
 SIGKILL_SIM = """
 import typing as ty
 from dataclasses import dataclass, field
@@ -429,12 +462,15 @@ def test_db_cli_bench_run_and_what_is_not_ported(tmp_path, capsys):
     """``db bench`` prints the JAX package's figures (their values are
     timings; its JAX form is not run here: its first read races the store's
     creation, which the port's waits out); ``db run`` serves a database in a
-    child process that a JAX client reads back; ``export --format mcap``
-    and ``export-videos`` raise ``NotImplementedError`` naming the
-    roadmap."""
+    child process that a JAX client reads back.  ``export --format mcap``
+    and ``export-videos``, which raised ``NotImplementedError`` until the
+    database's second half was ported, now write what the JAX package's
+    CLI writes: the same MCAP and layout bytes, and no MP4 for a database
+    without a video log."""
     import json
 
     import elodin_tpu.db as jdb
+    from elodin_tpu.db.__main__ import main as jmain
     from elodin_tpu_torch.__main__ import main as tmain
 
     capsys.readouterr()
@@ -445,11 +481,15 @@ def test_db_cli_bench_run_and_what_is_not_ported(tmp_path, capsys):
     assert figures["rows"] == 300 and figures["ingest_rows_per_sec"] > 0
 
     _cli_fixture(tmp_path / "db")
-    for argv in (["export", str(tmp_path / "db"), "--output", str(tmp_path / "o"),
-                  "--format", "mcap"],
-                 ["export-videos", str(tmp_path / "db"), "--output", str(tmp_path / "o")]):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 6"):
-            tmain(["db", *argv])
+    for name, run in (("torch", lambda argv: tmain(["db", *argv])), ("jax", jmain)):
+        out = tmp_path / name
+        run(["export", str(tmp_path / "db"), "--output", str(out), "--format", "mcap"])
+        run(["export-videos", str(tmp_path / "db"), "--output", str(out / "videos")])
+        assert os.listdir(out / "videos") == []
+    printed = capsys.readouterr().out
+    assert printed.count("no video message logs found") == 2
+    for f in ("db.mcap", "db.foxglove-layout.json"):
+        assert (tmp_path / "torch" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes()
 
     port = _free_port()
     proc = subprocess.Popen(

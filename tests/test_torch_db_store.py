@@ -204,7 +204,10 @@ SQL = ["SELECT * FROM a_x WHERE a_x > 0.5",
        "SELECT a_x.time, a_x, b_y FROM a_x JOIN b_y ON a_x.time = b_y.time",
        "SELECT * FROM a_x ASOF JOIN b_y ON a_x.time >= b_y.time",
        "SELECT count(*) AS n FROM a_world_pos GROUP BY time % 3000",
-       "SELECT fft(a_x) FROM a_x"]
+       "SELECT fft(a_x) FROM a_x",
+       "select count(*) from A_X",
+       "SELECT name FROM sqlite_master WHERE type = 'table' ORDER BY name",
+       "SELECT * FROM no_such_table"]
 
 
 @pytest.mark.parametrize("query", SQL)
@@ -217,6 +220,17 @@ def test_sql_matches(query):
         return
     got = tsql.run_sql(_query_db(tstorage), query)
     assert got.equals(want)
+
+
+def test_sql_on_one_engine_matches():
+    """Queries in turn on one database, whose sqlite mirror the port makes
+    a table at a time as queries name them: every answer the JAX
+    package's, the schema listing every store's table mid-way too."""
+    ours, ref = _query_db(tstorage), _query_db(jstorage)
+    for query in ("SELECT count(*) FROM a_x", "SELECT * FROM b_y LIMIT 3",
+                  "SELECT name FROM sqlite_master WHERE type = 'table' ORDER BY name",
+                  "SELECT count(*) FROM a_world_vel", "SELECT * FROM a_x JOIN b_y USING (time)"):
+        assert tsql.run_sql(ours, query).equals(jsql.run_sql(ref, query)), query
 
 
 @pytest.mark.parametrize("n,points", [(1000, 50), (10, 20), (500, 1), (3, 2)])

@@ -880,3 +880,84 @@ def test_served_nbody_on_k2(cuda, tmp_path):
     for q, want in read.items():
         store = db.by_name(q)
         np.testing.assert_array_equal(store.values[:store.len].reshape(want.shape), want)
+
+
+@pytest.mark.gpu
+def test_served_nbody_on_k2_mirrored_and_exported(cuda, tmp_path):
+    """``chip_smoke.py`` phase 40 (a) and (c) at 64 bodies: a port
+    ``MirrorWorld`` subscribes to every body's ``world_pos`` and
+    ``world_vel`` of a served n-body on K2 (f64) between two runs; after a
+    flush its ``value_at`` at every stored timestamp is bitwise the
+    ``Exec``'s history (the first run's rows by backfill, the second's by
+    the live sink).  The database's MCAP (``db export --format mcap``)
+    holds one message a stored row of each body's components, equal to
+    the store."""
+    import json
+    import time
+
+    import elodin_tpu_torch.db as edb
+    from elodin_tpu_torch import _config
+    from elodin_tpu_torch.__main__ import main as cli
+    from elodin_tpu_torch.db.export_mcap import read_mcap_full
+    from elodin_tpu_torch.db.mirror import MirrorWorld
+    from elodin_tpu_torch.db.server import serve_exec
+    from elodin_tpu_torch.models.nbody import build_system
+
+    prev = _config._FLOAT_POLICY
+    _config.set_float_policy("f64")
+    try:
+        exec_ = build_nbody(64, seed=2).build(build_system(60.0, use_kernel=True), device="cuda",
+                                              simulation_rate=1.0 / 60.0,
+                                              db_path=str(tmp_path / "db"))
+        server = serve_exec(exec_, "127.0.0.1:0")
+        try:
+            exec_.run(5)
+            exec_.flush_telemetry()
+            names = [q for q in exec_._history.column_names()
+                     if q.endswith((".world_pos", ".world_vel"))]
+            assert len(names) == 128
+            with MirrorWorld.connect(f"127.0.0.1:{server.port}", names) as m:
+                before = pw.LAUNCHES, sk.LAUNCHES
+                exec_.run(20)
+                assert (pw.LAUNCHES - before[0], sk.LAUNCHES - before[1]) == (20, 0)
+                exec_.flush_telemetry()
+                start = exec_._history.start_timestamp.timestamp()
+                times = np.asarray(exec_._history.times)
+                want_ts = np.concatenate([[int(start * 1e6)],
+                                          ((start + times[1:]) * 1e6).astype(np.int64)])
+                assert len(want_ts) == 26
+                deadline = time.monotonic() + 30
+                while any(m.cache.peek(q) is None or m.cache.peek(q).latest()[0] < want_ts[-1]
+                          for q in names):
+                    assert time.monotonic() < deadline, "the live sink never got the last rows"
+                    time.sleep(0.01)
+                for q in names:
+                    comp, row = exec_._history.resolve(q)
+                    hist = exec_._history.series(comp)[:, row]
+                    fetched = m.backfill(q, int(want_ts[0]), int(want_ts[-1]))
+                    assert fetched >= 6, (q, fetched, m._client.time_series(
+                        q, int(want_ts[0]), int(want_ts[-1]) + 1)[0][:8], want_ts[:8])
+                    for k, t in enumerate(want_ts):
+                        v = m.value_at(q, int(t))
+                        assert v is not None and np.array_equal(np.ravel(v), hist[k]), (
+                            q, k, m.cache.peek(q)._covered, m.cache.peek(q)._ts[:8], want_ts[:8])
+        finally:
+            server.stop()
+            exec_.on_commit_batch = None
+    finally:
+        _config.set_float_policy(prev)
+    cli(["db", "export", str(tmp_path / "db"), "--output", str(tmp_path / "out"),
+         "--format", "mcap", "--pattern", "b*"])
+    f = read_mcap_full(str(tmp_path / "out" / "db.mcap"))
+    by_topic = {c["topic"]: cid for cid, c in f.channels.items()}
+    msgs = {}
+    for cid, _t, data in f.messages:
+        msgs.setdefault(cid, []).append(json.loads(data))
+    db = edb.Database(str(tmp_path / "db"))
+    for q in names:
+        store = db.by_name(q)
+        got = msgs[by_topic["/" + q.replace(".", "/")]]
+        assert len(got) == store.len == 26
+        for k, row in enumerate(got):
+            assert np.array_equal(np.asarray(list(row.values()), dtype=np.float64),
+                                  store.values[k].ravel()), (q, k)

@@ -106,6 +106,20 @@ PORT_MODULES = [
     "elodin_tpu_torch.native",
     "elodin_tpu_torch.plotline",
     "elodin_tpu_torch.status",
+    "elodin_tpu_torch.db.mirror",
+    "elodin_tpu_torch.db.ws",
+    "elodin_tpu_torch.db.webui",
+    "elodin_tpu_torch.db.scenemath",
+    "elodin_tpu_torch.db.video",
+    "elodin_tpu_torch.db.export_mcap",
+    "elodin_tpu_torch.db.assets",
+    "elodin_tpu_torch.testing",
+    "elodin_tpu_torch.s10",
+    "elodin_tpu_torch.examples.db_client.main",
+    "elodin_tpu_torch.examples.logstream.main",
+    "elodin_tpu_torch.examples.video_stream.main",
+    "elodin_tpu_torch.examples.udp_component_broadcast.broadcast",
+    "elodin_tpu_torch.examples.udp_component_broadcast.receive",
 ]
 
 
@@ -122,6 +136,25 @@ def test_import_loads_no_jax():
         "('jax.', 'jaxlib', 'elodin_tpu.')) or m == 'elodin_tpu')\n"
         "print(bad); sys.exit(1 if bad else 0)")
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    """No module of the port and no line of ``chip_smoke.py`` imports JAX or
+    anything under ``elodin_tpu`` (not even a module there that imports no
+    JAX: importing any ``elodin_tpu.*`` runs the package's ``__init__``).
+    ``component_broadcast_pb2.py`` is generated protobuf code."""
+    import re
+
+    pat = re.compile(r"^\s*(?:import\s+(?:jax|jaxlib|elodin_tpu)\b(?!_torch)"
+                     r"|from\s+(?:jax|jaxlib|elodin_tpu)\b(?!_torch)[\w.]*\s+import)")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO, "elodin_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 150
+    bad = [f"{os.path.relpath(f, REPO)}:{k}: {line.strip()}"
+           for f in files for k, line in enumerate(open(f, encoding="utf-8"), 1)
+           if pat.match(line)]
+    assert not bad, bad
 
 
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
