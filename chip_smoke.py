@@ -427,7 +427,28 @@ served n-body run launches K2 once a tick, (b) and (c) neither kernel):
     ``ball.world_pos``, its SQL returns 5 rows, its write back is read
     back, and the child's process group is gone after stop; the child's
     start-up.  Neither kernel launches in (b)-(d).
-41. a JSON line of the kernels (time, plain version's time and bound at
+41. the flight software in the loop through the database, and the OSD;
+    neither kernel launches.  (a) a port database server; a truth writer
+    thread publishes at 200 Hz a body turning at 0.05 rad/s about +z from
+    0.6 rad: gyro readings, the magnetometer and sun vectors in the body
+    frame (noise from ``np.random.default_rng(41)``) and the attitude goal.
+    ``mekf_system(...).pipe(lqr_system(...))`` runs in one
+    ``HzDriver(200.0)`` on the card for 400 updates, subscribed to
+    ``gyro_omega``, ``mag_body``, ``sun_body`` and ``att_goal`` and
+    publishing ``att_est`` and ``control_torque``; then the same on the
+    card machine's CPU (``device="cpu"``).  Printed: the achieved Hz
+    against the 200 asked, ms an update split into pull, update and push,
+    device ops an update and the idle share of 50 card updates
+    (``torch.profiler``).  Gates: |<att_est, q_true>| > 0.999 on both
+    devices; the card run's inputs, recorded an update each, replayed with
+    no database through both devices' loops agree to 1e-12 an update (and
+    the live card run with its replay).  (b) the ball example on the card,
+    built with ``db_path``, served by ``serve_exec`` for 120 ticks and
+    flushed; ``MspOsdService(addr, "ball", DisplayPortBackend(BytesIO))``
+    renders 3 frames: the last frame's middle row, its ``SPD`` and ``ALT``
+    strings, is ``render``'s of the history's last ``ball.world_pos`` /
+    ``world_vel``; the frames' bytes and ms a frame.
+42. a JSON line of the kernels (time, plain version's time and bound at
     the main path's width, launches on the main path; no PyTorch call
     computes either function, so ``library_ms`` is null; under
     ``sharded``, phase 35's launches, times and bound of the sharded
@@ -438,8 +459,8 @@ served n-body run launches K2 once a tick, (b) and (c) neither kernel):
     cards, the four nccl ranks' time; under ``core_api``, phase 37's
     launches and K2's runner figures; under ``flight_examples``, phase
     38's launches; under ``telemetry_db``, phase 39's; under
-    ``telemetry_ui``, phase 40 (a)'s), then the last line
-    ``{"ok": true, "device": {...}}``.
+    ``telemetry_ui``, phase 40 (a)'s; under ``fsw``, phase 41's), then
+    the last line ``{"ok": true, "device": {...}}``.
 """
 
 import cProfile
@@ -625,6 +646,17 @@ UI_LTTB_POINTS = 50  # /api/series downsampled by LTTB to this many points
 UI_MCAP_PATTERN = "b1??.*"  # bodies b100-b199: 500 of the ~5.1k stores into the MCAP
 UI_VIDEO_FRAMES = 30  # the video-stream example's frames, paced at its 30 Hz
 DBC_TICKS = 400  # the db-client example's ball sim (the JAX test's ELODIN_MAX_TICKS)
+# phase 41: the flight-software loop against a live database, and the OSD
+FSW_HZ = 200.0  # the rate HzDriver is asked for, and the truth writer's
+FSW_UPDATES = 400  # 2 s of the loop, on the card and on the CPU
+FSW_TRACE_UPDATES = 50
+FSW_TOL = 1e-12  # card against CPU on the recorded inputs (the adcs tolerance)
+FSW_SEED = 41
+FSW_SPIN = 0.05  # rad/s about +z, from 0.6 rad
+FSW_INPUTS = ("gyro_omega", "mag_body", "sun_body", "att_goal")
+FSW_OUTPUTS = ("att_est", "control_torque")
+OSD_TICKS = 120  # the ball served for the OSD
+OSD_FRAMES = 3
 
 
 _START = time.perf_counter()
@@ -1270,9 +1302,10 @@ def _falcon9(el):
                   f"run({TRACE_TICKS}))", lambda: campaign.run(TRACE_TICKS), TRACE_TICKS)
 
 
-def _no_launches(label, fn):
+def _no_launches_counted(label, fn):
     """fn() with both kernels' launch counts set to 0 just before it;
-    raises unless both read 0 just after."""
+    raises unless both read 0 just after.  Returns fn()'s result and the
+    counts read."""
     from elodin_tpu_torch.ops import pairwise as pw
     from elodin_tpu_torch.ops import sixdof_kernel as sk
 
@@ -1283,7 +1316,13 @@ def _no_launches(label, fn):
     print(f"{label}: hand-kernel launches {launches} (the path has none)")
     if any(launches.values()):
         raise AssertionError(f"{label} launched a hand kernel: {launches}")
-    return out
+    return out, launches
+
+
+def _no_launches(label, fn):
+    """fn() with both kernels' launch counts set to 0 just before it;
+    raises unless both read 0 just after."""
+    return _no_launches_counted(label, fn)[0]
 
 
 def _errors_by_group(ours, ref):
@@ -4258,6 +4297,324 @@ def _db_phase(kernels):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _fsw_truth(k, rng):
+    """The truth writer's ``k``-th sample: a body turning at ``FSW_SPIN``
+    about +z from 0.6 rad; the gyro and the magnetometer and sun vectors in
+    the body frame, with noise from ``rng``; the attitude goal (identity).
+    Returns (the angle, the components)."""
+    theta = 0.6 + FSW_SPIN * k / FSW_HZ
+    return theta, {
+        "gyro_omega": np.array([0.0, 0.0, FSW_SPIN]) + rng.normal(0.0, 0.001, 3),
+        "mag_body": np.array([math.cos(theta), -math.sin(theta), 0.0]) + rng.normal(0.0, 0.003, 3),
+        "sun_body": np.array([0.0, 0.0, 1.0]) + rng.normal(0.0, 0.003, 3),
+        "att_goal": np.array([0.0, 0.0, 0.0, 1.0]),
+    }
+
+
+def _fsw_loop(device):
+    """``mekf_system`` piped into ``lqr_system`` on ``device``: the MEKF
+    at the driver's rate over the magnetometer and sun vectors, then the
+    Yang LQR toward ``att_goal``."""
+    from elodin_tpu_torch import fsw
+
+    return fsw.mekf_system(
+        sigma_g=[0.01] * 3, sigma_b=[0.001] * 3, dt=1.0 / FSW_HZ,
+        refs_fields=["mag_ref", "sun_ref"], body_fields=["mag_body", "sun_body"],
+        sigmas=[0.03, 0.03], device=device,
+    ).pipe(fsw.lqr_system(j=[0.1, 0.2, 0.3], q_ang_vel=[1.0] * 3, q_pos=[2.0] * 3,
+                          r=[0.5] * 3, device=device))
+
+
+def _fsw_world():
+    """A fresh flight-software world: a dataclass of annotated components,
+    host numpy, as ``HzDriver`` synchronises them."""
+    import typing
+    from dataclasses import dataclass, field
+
+    import elodin_tpu_torch as el
+
+    def comp(name, n):
+        return typing.Annotated[torch.Tensor,
+                                el.Component(name, el.ComponentType(el.PrimitiveType.F64, (n,)))]
+
+    @dataclass
+    class FswWorld:
+        gyro_omega: comp("gyro_omega", 3) = field(default_factory=lambda: np.zeros(3))
+        mag_body: comp("mag_body", 3) = field(default_factory=lambda: np.zeros(3))
+        mag_ref: comp("mag_ref", 3) = field(default_factory=lambda: np.array([1.0, 0, 0]))
+        sun_body: comp("sun_body", 3) = field(default_factory=lambda: np.zeros(3))
+        sun_ref: comp("sun_ref", 3) = field(default_factory=lambda: np.array([0.0, 0, 1.0]))
+        att_goal: comp("att_goal", 4) = field(default_factory=lambda: np.array([0.0, 0, 0, 1.0]))
+        att_est: comp("att_est", 4) = field(default_factory=lambda: np.array([0.0, 0, 0, 1.0]))
+        control_torque: comp("control_torque", 3) = field(default_factory=lambda: np.zeros(3))
+
+    return FswWorld()
+
+
+def _fsw_drive(addr, device, truth):
+    """One live run of the loop on ``device``: ``HzDriver(FSW_HZ)`` for
+    ``FSW_UPDATES`` updates against the database at ``addr``, subscribed
+    to ``FSW_INPUTS`` and publishing ``FSW_OUTPUTS``.  Each update's pull,
+    update and push are timed apart, and the inputs it pulled and the
+    outputs it computed are recorded.  Returns the figures, the records
+    and the estimate's agreement with the truth writer's last attitude."""
+    from elodin_tpu_torch import fsw
+
+    driver = fsw.HzDriver(FSW_HZ, _fsw_loop(device), _fsw_world(), db_addr=addr,
+                          subscribe=list(FSW_INPUTS), publish=list(FSW_OUTPUTS))
+    # the driver's own step, with its pull, update and push wrapped on the
+    # instance to time them and record what each update read and wrote
+    records, times, tick = [], [], {}
+    pull, update, push = driver._pull, driver.system.update, driver._push
+
+    def timed_pull():
+        t0 = time.perf_counter()
+        pull()
+        tick["pull"] = time.perf_counter() - t0
+
+    def timed_update(world):
+        inputs = {f: np.array(getattr(world, f)) for f in FSW_INPUTS}
+        t0 = time.perf_counter()
+        update(world)
+        tick["update"] = time.perf_counter() - t0
+        records.append((inputs, {f: np.array(getattr(world, f)) for f in FSW_OUTPUTS}))
+
+    def timed_push(t_us):
+        t0 = time.perf_counter()
+        push(t_us)
+        times.append((tick["pull"], tick["update"], time.perf_counter() - t0))
+
+    driver._pull, driver.system.update, driver._push = timed_pull, timed_update, timed_push
+    try:
+        t0 = time.perf_counter()
+        driver.run(max_ticks=FSW_UPDATES)
+        wall = time.perf_counter() - t0
+    finally:
+        driver.close()
+    theta = truth["theta"]
+    q_true = np.array([0.0, 0.0, math.sin(theta / 2), math.cos(theta / 2)])
+    times = np.array(times) * 1e3
+    return {"hz": FSW_UPDATES / wall, "wall_s": wall,
+            "pull_ms": float(np.median(times[:, 0])), "update_ms": float(np.median(times[:, 1])),
+            "push_ms": float(np.median(times[:, 2])),
+            "update_ms_mean": float(times[:, 1].mean()),
+            "step_ms": float(np.median(times.sum(axis=1))),
+            "dot": abs(float(np.dot(driver.world.att_est, q_true))),
+            "records": records, "world": driver.world}
+
+
+def _fsw_replay(records, device):
+    """The recorded inputs, a world each, through a fresh loop on
+    ``device`` with no database: the outputs of every update."""
+    system, world = _fsw_loop(device), _fsw_world()
+    out = []
+    for inputs, _ in records:
+        for f, v in inputs.items():
+            setattr(world, f, v.copy())
+        system.update(world)
+        out.append({f: getattr(world, f).copy() for f in FSW_OUTPUTS})
+    return out
+
+
+def _fsw_phase(tmp, devices=("cuda", "cpu")):
+    """Phase 41 (a): the flight-software loop through a live port database.
+    A truth writer thread publishes at ``FSW_HZ``; the MEKF -> LQR loop runs
+    in one ``HzDriver`` on the card, then on the card machine's CPU; the
+    card run's recorded inputs are replayed through both devices' loops
+    with no database and held to ``FSW_TOL`` a tick (and the live card run
+    to its replay); the card loop's device ops an update and idle share
+    over ``FSW_TRACE_UPDATES`` updates.  ``devices`` are the card and its
+    CPU but for a rehearsal on the CPU."""
+    import elodin_tpu_torch.db as edb
+
+    card, host = devices
+    t0 = time.perf_counter()
+    server = edb.Server.start(os.path.join(tmp, "fsw"))
+    truth, stop = {}, threading.Event()
+
+    def write():
+        client = edb.Client.connect(server.addr)
+        writer = client.table_writer({"gyro_omega": edb.f64[3], "mag_body": edb.f64[3],
+                                      "sun_body": edb.f64[3], "att_goal": edb.f64[4]})
+        rng = np.random.default_rng(FSW_SEED)
+        t0, k = time.perf_counter(), 0
+        try:
+            while not stop.is_set():
+                theta, values = _fsw_truth(k, rng)
+                writer.write(timestamp_us=time.time_ns() // 1000, values=values)
+                truth["theta"], truth["k"] = theta, k
+                k += 1
+                stop.wait(max(0.0, t0 + k / FSW_HZ - time.perf_counter()))
+        finally:
+            writer.close()
+            client.close()
+
+    thread = threading.Thread(target=write, daemon=True, name="fsw-truth")
+    thread.start()
+    try:
+        probe = edb.Client.connect(server.addr)
+        deadline = time.monotonic() + DB_WAIT_S
+        while probe.latest("att_goal") is None:
+            if time.monotonic() > deadline or not thread.is_alive():
+                raise AssertionError("phase 41 (a): the truth writer's rows never arrived")
+            time.sleep(0.01)
+        probe.close()
+        split = {"start": time.perf_counter() - t0}
+        runs = {}
+        for label, dev in (("card", card), ("cpu", host)):
+            t1 = time.perf_counter()
+            runs[label] = _fsw_drive(server.addr, dev, truth)
+            split[label] = time.perf_counter() - t1
+        written = truth["k"] + 1
+    finally:
+        stop.set()
+        thread.join(timeout=DB_WAIT_S)
+        server.stop()
+    if thread.is_alive():
+        raise AssertionError("phase 41 (a): the truth writer never ended")
+    for dev, run in runs.items():
+        if not run["dot"] > 0.999:
+            raise AssertionError(f"phase 41 (a): the MEKF on {dev} did not converge: "
+                                 f"|<att_est, q_true>| {run['dot']}")
+    records = runs["card"]["records"]
+    t1 = time.perf_counter()
+    on_card, on_cpu = _fsw_replay(records, card), _fsw_replay(records, host)
+    split["replay"] = time.perf_counter() - t1
+    errs = {f: max(float(np.abs(a[f] - b[f]).max()) for a, b in zip(on_card, on_cpu))
+            for f in FSW_OUTPUTS}
+    live = {f: max(float(np.abs(rec[1][f] - b[f]).max()) for rec, b in zip(records, on_card))
+            for f in FSW_OUTPUTS}
+    for label, e in (("card against CPU", errs), ("the live card run against its replay", live)):
+        if not max(e.values()) <= FSW_TOL:
+            raise AssertionError(f"phase 41 (a): {label} {e} exceeds {FSW_TOL}")
+    system, world = _fsw_loop(card), _fsw_world()
+    for f, v in records[-1][0].items():
+        setattr(world, f, v)
+    t1 = time.perf_counter()
+    ops, busy, wall = _device_trace(lambda: [system.update(world)
+                                             for _ in range(FSW_TRACE_UPDATES)])
+    split["trace"] = time.perf_counter() - t1
+    return {"runs": runs, "errs": errs, "live": live, "written": written, "split": split,
+            "ops": ops / FSW_TRACE_UPDATES, "idle": 1.0 - busy / wall if ops else math.nan,
+            "trace_ms": wall / FSW_TRACE_UPDATES}
+
+
+def _osd_phase(tmp, device="cuda"):
+    """Phase 41 (b): the MSP OSD on a served sim.  The ball example's
+    ``Exec`` on the card, built with ``db_path``, served by ``serve_exec``
+    for ``OSD_TICKS`` ticks and flushed; ``MspOsdService`` renders
+    ``OSD_FRAMES`` frames of ``ball`` into a DisplayPort byte stream; the
+    last frame's middle row (speed, horizon, altitude) must be ``render``'s
+    of the history's last ``ball.world_pos`` / ``world_vel``.  ``device``
+    is the card but for a rehearsal on the CPU."""
+    import io
+
+    import elodin_tpu_torch as el
+    from elodin_tpu_torch import msp_osd
+    from elodin_tpu_torch.db.server import serve_exec
+    from elodin_tpu_torch.examples.ball import sim as ball
+
+    el.set_float_policy("f64")
+    exec_ = ball.world().build(ball.system(), device=device,
+                               simulation_rate=1.0 / ball.SIM_TIME_STEP,
+                               db_path=os.path.join(tmp, "ball"))
+    server = serve_exec(exec_, "127.0.0.1:0")
+    try:
+        t0 = time.perf_counter()
+        exec_.run(OSD_TICKS)
+        exec_.flush_telemetry()
+        run_s = time.perf_counter() - t0
+        _, rows = _history_rows(exec_, ["ball.world_pos", "ball.world_vel"])
+        buf = io.BytesIO()
+        svc = msp_osd.MspOsdService(f"127.0.0.1:{server.port}", "ball",
+                                    msp_osd.DisplayPortBackend(buf), rate_hz=1000.0)
+        step, frame_s = svc.step, []
+
+        def timed(client):
+            start = time.perf_counter()
+            step(client)
+            frame_s.append(time.perf_counter() - start)
+
+        svc.step = timed
+        if svc.run(max_frames=OSD_FRAMES) != OSD_FRAMES:
+            raise AssertionError("phase 41 (b): the OSD rendered too few frames")
+    finally:
+        server.stop()
+    want = msp_osd.TelemetryState()
+    want.update_world_pos(rows["ball.world_pos"][-1])
+    want.update_world_vel(rows["ball.world_vel"][-1])
+    grid = msp_osd.OsdGrid()
+    msp_osd.render(grid, want)
+    mid = grid.rows // 2
+    data, pos, texts = buf.getvalue(), 0, {}
+    while pos < len(data):  # MSP v1 frames: $M> size cmd payload checksum
+        size, cmd = data[pos + 3], data[pos + 4]
+        payload = data[pos + 5:pos + 5 + size]
+        if cmd == msp_osd.MSP_DISPLAYPORT and payload[0] == msp_osd.MSP_DP_WRITE_STRING:
+            texts[payload[1]] = payload[4:-1].decode()
+        pos += 6 + size
+    alt = f"ALT {want.altitude_m():7.1f}"
+    spd = f"SPD {want.speed_ms():6.1f}"
+    got = texts.get(mid, "")
+    if got != grid.line(mid).strip() or alt not in got or spd not in got:
+        raise AssertionError(f"phase 41 (b): the OSD's row {mid} reads {got!r}, the "
+                             f"history's last state renders {grid.line(mid).strip()!r}")
+    if not svc.state.db_connected or svc.state.update_count != OSD_FRAMES:
+        raise AssertionError(f"phase 41 (b): the OSD saw the database "
+                             f"{svc.state.update_count} of {OSD_FRAMES} frames")
+    return {"bytes": len(data), "frame_ms": [1e3 * t for t in frame_s], "row": got,
+            "run_ms_per_tick": run_s * 1e3 / OSD_TICKS}
+
+
+def _fsw_osd_phase(kernels):
+    """Phase 41: the flight-software loop (a) and the OSD (b), with neither
+    kernel launched.  Adds ``fsw`` (the launches counted in (a) and (b))
+    to the kernels line."""
+    import shutil
+    import tempfile
+
+    import elodin_tpu_torch as el
+
+    t0 = time.perf_counter()
+    el.set_float_policy("f64")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fsw-", dir=os.path.join(REPO, "build"))
+    try:
+        a, launches_a = _no_launches_counted("phase 41 (a), the FSW loop",
+                                             lambda: _fsw_phase(tmp))
+        t1 = time.perf_counter()
+        for dev, label in (("card", "the card"), ("cpu", "the card machine's CPU")):
+            r = a["runs"][dev]
+            print(f"phase 41 (a), mekf_system -> lqr_system in HzDriver({FSW_HZ:g}) on {label}, "
+                  f"against a live database: {FSW_UPDATES} updates at {r['hz']:.2f} Hz of "
+                  f"{FSW_HZ:g} asked ({r['wall_s']:.3f} s); ms an update (medians): pull "
+                  f"{r['pull_ms']:.4g} (4 latest round trips), update {r['update_ms']:.4g} "
+                  f"(mean {r['update_ms_mean']:.4g}), push {r['push_ms']:.4g}, the step "
+                  f"{r['step_ms']:.4g}; |<att_est, q_true>| {r['dot']:.9f} (gate > 0.999)")
+        print(f"phase 41 (a): the truth writer published {a['written']} rows at {FSW_HZ:g} Hz; "
+              f"the card run's {FSW_UPDATES} recorded inputs replayed with no database, card "
+              f"against CPU max|Δ| att_est {a['errs']['att_est']:.3e}, control_torque "
+              f"{a['errs']['control_torque']:.3e} (tol {FSW_TOL:g}); the live card run against "
+              f"its replay {max(a['live'].values()):.3e}; device trace of "
+              f"{FSW_TRACE_UPDATES} card updates: {a['ops']:.1f} device ops an update, "
+              f"{a['trace_ms']:.4g} ms an update under the profiler, idle share "
+              f"{100 * a['idle']:.2f}%; (a) {t1 - t0:.1f} s: "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in a["split"].items()))
+        b, launches_b = _no_launches_counted("phase 41 (b), the OSD on a served ball",
+                                             lambda: _osd_phase(tmp))
+        print(f"phase 41 (b), MspOsdService on the ball served from the card "
+              f"({OSD_TICKS} ticks, {b['run_ms_per_tick']:.4g} ms/tick served): {OSD_FRAMES} "
+              f"frames, {b['bytes']} DisplayPort bytes, ms a frame "
+              f"{', '.join(f'{t:.4g}' for t in b['frame_ms'])}; the middle row {b['row']!r} "
+              f"is render's of the history's last state; (b) {time.perf_counter() - t1:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 41: {time.perf_counter() - t0:.1f} s")
+    for entry in kernels:
+        name = entry["name"]
+        entry["fsw"] = {"launches": launches_a[name] + launches_b[name]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4329,12 +4686,14 @@ def main() -> int:
     _clock("phase 38")
     _db_phase(kernels)
     _clock("phase 40")
+    _fsw_osd_phase(kernels)
+    _clock("phase 41")
 
     if any(m == "jax" or m.startswith(("jax.", "elodin_tpu.")) or m == "elodin_tpu"
            for m in sys.modules):
         raise AssertionError("the port's run imported JAX or the JAX package")
 
-    # 41. results
+    # 42. results
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -26,6 +26,16 @@ def default_float() -> torch.dtype:
     return torch.float32 if _FLOAT_POLICY == "f32" else torch.float64
 
 
+def device(name, who: str, hint: str) -> torch.device:
+    """``torch.device(name)``, refusing "cuda" where there is no card:
+    ``who`` names the caller and ``hint`` how to run on the host."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: device {name!r} asked for, but no CUDA device is "
+                           f"available ({hint})")
+    return dev
+
+
 def effector_compute_dtype() -> torch.dtype | None:
     """Under the 'mixed' policy the six-dof effector pipeline computes in
     f32 while the integrator state (world_pos/world_vel) and the

@@ -25,6 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import _config
 from .interop import columns_from_numpy, columns_to_numpy
 from .system import build_step
 
@@ -33,12 +34,8 @@ DEBUG_DIR_ENV = "ELODIN_TPU_DEBUG_DIR"
 
 
 def _device(name) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"verify: device {name!r} asked for, but no CUDA device "
-                           "is available (pass devices=('cpu', 'cpu') for a "
-                           "determinism check)")
-    return dev
+    return _config.device(name, "verify",
+                          "pass devices=('cpu', 'cpu') for a determinism check")
 
 
 def _run(meta, cols: dict, system, ticks: int, device) -> dict[str, np.ndarray]:

@@ -18,6 +18,9 @@ elodin_tpu_torch``) against the JAX package's, on the CPU.
   written and ``ELODIN_RESUME=1`` resumes from it.
 * One subprocess, ``python -m elodin_tpu_torch bench
   elodin_tpu_torch.examples.ball.sim --ticks 20 --device cpu``.
+* ``editor`` and ``render-server`` with the JAX package's behaviour: a
+  database address, an ``s10.toml``, a sim module run on the CPU, and a
+  served database directory that a client reaches.
 """
 
 import csv
@@ -26,14 +29,17 @@ import json
 import os
 import re
 import runpy
+import signal
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
 
 import elodin_tpu as jel
 import elodin_tpu_torch as tel
+from elodin_tpu import __main__ as jmain
 from elodin_tpu_torch import __main__ as tmain
 from elodin_tpu_torch.examples.cube_sat import main as tcube
 from elodin_tpu_torch.examples.drone import main as tdrone
@@ -224,18 +230,92 @@ def test_run_limits_and_refusals(monkeypatch, capsys, tmp_path):
     capsys.readouterr()
 
 
-@pytest.mark.parametrize("cmd", ["db", "editor", "render-server"])
+@pytest.mark.parametrize("cmd", ["db"])
 def test_python_m_refuses_what_needs_the_database(cmd, capsys):
-    """``editor`` and ``render-server`` are not ported; ``db`` runs the
-    database's CLI, which without a subcommand exits with its usage."""
+    """``db`` runs the database's CLI, which without a subcommand exits
+    with its usage."""
     with pytest.raises(SystemExit) as e:
         tmain.main([cmd])
     assert e.value.code != 0
-    err = capsys.readouterr().err
-    if cmd == "db":
-        assert "usage: elodin-db" in err
+    assert "usage: elodin-db" in capsys.readouterr().err
+
+
+def _served_child(args):
+    """``python -m elodin_tpu_torch ARGS`` serving a database on a free
+    port: a client reaches it and reads back a row it wrote, then SIGINT
+    stops the child, which must exit 0."""
+    from elodin_tpu_torch.db import Client
+
+    env = dict(os.environ, PYTHONPATH=REPO, PYTHONUNBUFFERED="1")
+    proc = subprocess.Popen([sys.executable, "-m", "elodin_tpu_torch", *args], cwd=REPO,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        m = re.match(r"elodin-db listening on (127\.0\.0\.1:\d+) \(path=(.*)\)", line)
+        assert m, line
+        client = Client.connect(m.group(1))
+        client.send("probe.x", np.array([1.5, -2.0]), timestamp_us=7)
+        for _ in range(500):
+            sample = client.latest("probe.x")
+            if sample is not None:
+                break
+            time.sleep(0.02)
+        np.testing.assert_array_equal(sample.values, [1.5, -2.0])
+        client.close()
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=30) == 0
+        return m.group(2)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+@pytest.mark.parametrize("case", ["editor_address", "editor_s10_toml", "editor_sim_module",
+                                  "render_server"])
+def test_editor_and_render_server(case, tmp_path, capsys, monkeypatch):
+    """``editor`` resolves its target as the JAX package's does: a live
+    database's address prints its viewer's (the same text as the JAX
+    package's), an ``s10.toml`` runs (as the JAX package's does) and is
+    supervised until its processes end, a sim (here a dotted module, with
+    ``--device cpu`` after it) runs through ``run``; ``render-server DIR``
+    serves DIR's database."""
+    if case == "editor_address":
+        outs = []
+        for addr in ("127.0.0.1:2240", "[::1]:4000"):
+            jmain.main(["editor", addr])
+            want = capsys.readouterr().out
+            tmain.main(["editor", addr])
+            assert capsys.readouterr().out == want
+            outs.append(want)
+        assert "web viewer is at http://127.0.0.1:2241/" in outs[0]
+        assert "web viewer is at http://[::1]:4001/" in outs[1]
+    elif case == "editor_s10_toml":
+        outs = {}
+        for label, main in (("jax", jmain.main), ("torch", tmain.main)):
+            out = tmp_path / f"{label}.txt"
+            toml = tmp_path / label / "s10.toml"
+            toml.parent.mkdir()
+            toml.write_text(f"""[recipes.hello]\ntype = "process"\ncmd = "/bin/sh"\n"""
+                            f"""args = ["-c", "echo hi > {out}"]\n""")
+            main(["editor", str(toml)])
+            outs[label] = out.read_text()
+        assert outs["torch"] == outs["jax"] == "hi\n"
+    elif case == "editor_sim_module":
+        env = dict(os.environ, PYTHONPATH=REPO, ELODIN_MAX_TICKS="30",
+                   ELODIN_SIM_SUMMARY_JSON=str(tmp_path / "summary.json"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "elodin_tpu_torch", "editor",
+             "elodin_tpu_torch.examples.ball.sim", "127.0.0.1:0", "--device", "cpu"],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert json.loads((tmp_path / "summary.json").read_text())["ticks"] == 30
     else:
-        assert "is not ported (ROADMAP.md §1 item 8)" in err
+        db_dir = str(tmp_path / "db")
+        assert _served_child(["render-server", db_dir, "--addr", "127.0.0.1:0"]) == db_dir
+        assert (tmp_path / "db").is_dir()
 
 
 def test_python_m_bench_of_a_module_in_a_subprocess():

@@ -961,3 +961,49 @@ def test_served_nbody_on_k2_mirrored_and_exported(cuda, tmp_path):
         for k, row in enumerate(got):
             assert np.array_equal(np.asarray(list(row.values()), dtype=np.float64),
                                   store.values[k].ravel()), (q, k)
+
+
+def _fsw_loop(device):
+    """The flight-software loop of ``chip_smoke.py``'s phase 41:
+    ``mekf_system`` piped into ``lqr_system`` on ``device``."""
+    from elodin_tpu_torch import fsw
+
+    return fsw.mekf_system(
+        sigma_g=[0.01] * 3, sigma_b=[0.001] * 3, dt=1.0 / 200.0,
+        refs_fields=["mag_ref", "sun_ref"], body_fields=["mag_body", "sun_body"],
+        sigmas=[0.03, 0.03], device=device,
+    ).pipe(fsw.lqr_system(j=[0.1, 0.2, 0.3], q_ang_vel=[1.0] * 3, q_pos=[2.0] * 3,
+                          r=[0.5] * 3, device=device))
+
+
+@pytest.mark.gpu
+def test_fsw_mekf_lqr_on_the_card_matches_its_cpu(cuda):
+    """The MEKF -> LQR systems on the card and on the CPU take the same 200
+    worlds (a body turning about +z, noise from one numpy seed): their
+    ``att_est`` and ``control_torque`` agree each tick to 1e-12 and come
+    back as host numpy."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(11)
+    systems = {"cuda": _fsw_loop("cuda"), "cpu": _fsw_loop("cpu")}
+    worlds = {d: SimpleNamespace(att_est=np.array([0.0, 0, 0, 1.0])) for d in systems}
+    worst = 0.0
+    for k in range(200):
+        theta = 0.6 + 0.05 * k / 200.0
+        inputs = {"gyro_omega": np.array([0.0, 0.0, 0.05]) + rng.normal(0.0, 0.001, 3),
+                  "mag_body": np.array([np.cos(theta), -np.sin(theta), 0.0])
+                  + rng.normal(0.0, 0.003, 3),
+                  "sun_body": np.array([0.0, 0.0, 1.0]) + rng.normal(0.0, 0.003, 3),
+                  "mag_ref": np.array([1.0, 0.0, 0.0]), "sun_ref": np.array([0.0, 0.0, 1.0]),
+                  "att_goal": np.array([0.0, 0.0, 0.0, 1.0])}
+        for dev, system in systems.items():
+            for name, v in inputs.items():
+                setattr(worlds[dev], name, v.copy())
+            system.update(worlds[dev])
+        for name in ("att_est", "control_torque"):
+            a, b = getattr(worlds["cuda"], name), getattr(worlds["cpu"], name)
+            assert isinstance(a, np.ndarray) and a.dtype == np.float64
+            worst = max(worst, float(np.abs(a - b).max()))
+    assert worst <= 1e-12, worst
+    q_true = np.array([0.0, 0.0, np.sin(theta / 2), np.cos(theta / 2)])
+    assert abs(float(np.dot(worlds["cuda"].att_est, q_true))) > 0.999

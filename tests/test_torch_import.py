@@ -120,6 +120,13 @@ PORT_MODULES = [
     "elodin_tpu_torch.examples.video_stream.main",
     "elodin_tpu_torch.examples.udp_component_broadcast.broadcast",
     "elodin_tpu_torch.examples.udp_component_broadcast.receive",
+    "elodin_tpu_torch.fsw",
+    "elodin_tpu_torch.fsw_services",
+    "elodin_tpu_torch.rtsp",
+    "elodin_tpu_torch.msp_osd",
+    "elodin_tpu_torch.inscribe",
+    "elodin_tpu_torch.utils",
+    "elodin_tpu_torch.utils.glbgen",
 ]
 
 
