@@ -32,11 +32,14 @@ The batched 6-dof RK4 path and its kernel (sixdof_rk4):
    the f64 kernel must agree with it to ≤ 1e-10 and the f32 kernel to
    ≤ 1e-4 (per channel group, max |Δ| / max |ref|).
 5. kernel (4000 ticks) and plain version (20 ticks) timed with CUDA
-   events, f32 and f64, at 1024 bodies and at the JAX bench's kernel
-   width, 131072 bodies, with the card's SM clock and its maximum read
-   just after the kernel's timed calls; the bound of a tick there, from the function's
-   operations and SFU results (``SIXDOF_TICK_OPS``), with the loops of the
-   kernel's SASS beside it (cuobjdump, read by ``scripts/sass_loops.py``).
+   events, f32 and f64, at 1024 bodies, at the main path's width (8192),
+   at a shard's (32768 bodies, a quarter of phase 35's) and at the JAX
+   bench's kernel width, 131072 bodies, with the card's SM clock and its
+   maximum read just after the kernel's timed calls; the bound of a tick
+   at the last three, from the function's operations and SFU results
+   (``SIXDOF_TICK_OPS``), beside the launch plan, the registers (ptxas)
+   and the loop of the kernel's SASS (cuobjdump, read by
+   ``scripts/sass_loops.py``).
 6. device trace with ``torch.profiler``: device ops per tick, device busy
    time and idle share of the ECS loop (8192 bodies, f64, 20 ticks) and
    of one kernel launch at 131072 bodies x 4000 ticks, f32 and f64.
@@ -250,8 +253,9 @@ against CPU at ``GRAD_TOL`` (1e-9, max |Δ| / max |ref|) unless named:
 32. orbit-retarget (``examples.orbit_retarget``, ``el.rollout`` through
     its 504 RK4 ticks): the gradient at 60 ticks on the card against the
     central finite difference (eps 1e-6, rtol 1e-5, atol 1e-8); 1 Adam
-    step from ``solve``'s start (``torch.optim.Adam(lr=3e-2)``) on the
-    card and on the CPU, its loss, gradient and iterate held card
+    step from ``solve``'s start (``torch.optim.Adam(lr=3e-2)``), cut to
+    168 ticks (``ORBIT_ADAM_TICKS``; 504 until the script overran its
+    time), on the card and on the CPU, its loss, gradient and iterate held card
     against CPU, ms per value-and-grad and step, the peak card memory
     above what was allocated before it; one step with 8 remat segments
     on the card, cut to 88 ticks (``ORBIT_REMAT_TICKS``; 504 until phase
@@ -487,6 +491,7 @@ F32_TOL, F64_TOL, ECS_F64_TOL = 1e-4, 1e-12, 1e-10
 SIXDOF_STATE = ("world_pos", "world_vel")
 MAIN_BODIES, MAIN_TICKS = 8192, 240
 BENCH_BODIES, BENCH_TICKS, PLAIN_TICKS = 131072, 4000, 20
+SHARD_BODIES = 32768  # one of phase 35's four shards of BENCH_BODIES
 TRACE_TICKS = 20
 TRACE_ATTEMPTS = 3  # calls of fn a device trace makes at most
 NBODY_BODIES, NBODY_TICKS, NBODY_DT = 16384, 100, 60.0
@@ -509,20 +514,26 @@ SFU_PER_SM_CLOCK, BOOST_HZ = 16, 1.98e9
 # 8 (two multiplies, three FMAs).  One reciprocal square root a pair goes
 # to the SFU.  The d2 == 0 remap is no work of the function a pair.
 PAIR_OPS = {torch.float32: 17, torch.float64: 25}
-# K1's operations per body-tick, counted from the function
-# (sixdof_rk4.cu's rk4_tick: four stages of the effector and sixdof_accel
-# algebra, five normalised quaternion updates, the RK4 sums), an FMA
-# counted as 2, and what stays constant for a body over the ticks (1/inv_m
-# and the effector constants times m) left out: 891 adds and multiplies, 4
-# reciprocals, 9 reciprocal square roots and 4 square roots, one SFU result
-# each.  The IEEE reciprocal and square root add the shortest correctly
-# rounded sequence after the SFU's seed: in f32 4 operations a reciprocal
-# (one Newton step), 6 a square root, none a reciprocal square root
-# (rsqrtf is the SFU's result); in f64 8 a reciprocal and a reciprocal
-# square root (two Newton steps, the cubic step), 14 a square root.
-SIXDOF_TICK_OPS = {torch.float32: 891 + 4 * 4 + 4 * 6,
-                   torch.float64: 891 + 4 * 8 + 9 * 8 + 4 * 14}
-SIXDOF_TICK_SFU = 4 + 9 + 4
+# K1's operations per body-tick, an FMA counted as 2, counted from the
+# algebra of sixdof_rk4.cu's rk4_tick, which leaves out what the function
+# does not need.  sixdof_accel's frame round trip cancels (R R^T = I), so a
+# stage needs only R e_x and R e_z of the stage's attitude n: |n|^2 7,
+# 2/|n|^2 1, the products 2 n_i / |n|^2 and x y, x z, y z 7, the two
+# columns 16 (31); the spin (T m / Izz) R e_z 3; gravity's |p|^2 5 and
+# -mu ir^3 3, |v|^2 5, the drag's |v| = v^2 rsqrt(max(v^2, min normal)) 2
+# and its factor 1, the linear acceleration 15 (31): 65 a stage.  Stages
+# 2-4 each add the attitude step 27, the position, spin and velocity
+# updates 18 and the RK4 sums 24 (12 at stage 4).  The tick's end: the
+# attitude step 27, its normalisation 11, the position, spin and velocity
+# 18.  What stays constant for a body (T m / Izz, drag / m) is left out.
+# 511 in all.  SFU results: a reciprocal and two reciprocal square roots a
+# stage, one reciprocal square root at the end (13).  In f64 the SFU's
+# seeds are refined to the last bits: 6 operations a reciprocal, 8 a
+# reciprocal square root (the cubic step), 96 more.
+_SIXDOF_F32_OPS = 4 * 65 + 3 * (27 + 18 + 24) - 12 + (27 + 11 + 18)
+SIXDOF_TICK_OPS = {torch.float32: _SIXDOF_F32_OPS,
+                   torch.float64: _SIXDOF_F32_OPS + 4 * 6 + 9 * 8}
+SIXDOF_TICK_SFU = 4 * 3 + 1
 # the JAX package's campaign on the CPU (examples/falcon9, LHS seed 0,
 # history every 100 ticks): the tick at which every sample has latched
 # DOWN, and the first tick at which a sample is in DESCENT (guidance at
@@ -593,6 +604,9 @@ ORBIT_FD_TICKS, ORBIT_FD_EPS, ORBIT_ADAM_STEPS = 60, 1e-6, 1
 ORBIT_TRACE_TICKS = 16  # one gradient traced, cut in depth (~3500 device ops a tick)
 # the remat step against plain, cut in depth from 504 ticks (47 s on the card) for phase 39
 ORBIT_REMAT_TICKS = 88
+# the Adam step card against CPU, cut in depth from the example's 504 ticks (27 s on the card
+# and its CPU) when the script overran its time
+ORBIT_ADAM_TICKS = 168
 GRAD_TOL = 1e-9  # card against CPU, values, gradients and iterates
 HOVER_STEPS, HOVER_TRACE_TICKS = 1, 24
 PYSIM_CHUNK, PYSIM_CHUNKS = 30, 2
@@ -686,12 +700,17 @@ def _time_ms(fn, reps=3, calls=1):
 
 
 def _trace_events(fn, attempts=TRACE_ATTEMPTS):
-    """(device events, wall ms) of one call of fn() under torch.profiler,
-    every card synchronised before and after.  The profiler at times hands
-    back a trace with no device op at all; fn() is then traced again, up to
-    ``attempts`` calls in all, and if none of them records a device op the
-    result is ([], wall ms of the last)."""
+    """([(card index, ms)] of the device ops, wall ms) of one call of fn()
+    under torch.profiler, every card synchronised before and after.  The
+    ops are read from the profiler's raw results, the same ones (and the
+    same names left out) that ``prof.events()`` keeps as device events,
+    without the tree of Python events that ``events()`` builds, which took
+    seconds for every 10**4 device ops and most of a long trace's time.
+    The profiler at times hands back a trace with no device op at all;
+    fn() is then traced again, up to ``attempts`` calls in all, and if none
+    of them records a device op the result is ([], wall ms of the last)."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
     from torch.profiler import ProfilerActivity, profile
 
     def sync():
@@ -705,7 +724,10 @@ def _trace_events(fn, attempts=TRACE_ATTEMPTS):
             fn()
             sync()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        dev = [(e.device_index(), e.duration_ns() / 1e6)
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and not _filter_name(e.name())
+               and not e.is_hidden_event()]
         if dev:
             return dev, wall_ms
         print(f"device trace: the profiler recorded no device op (call {attempt} of "
@@ -722,7 +744,7 @@ def _device_trace(fn, attempts=TRACE_ATTEMPTS):
     dev, wall_ms = _trace_events(fn, attempts)
     if not dev:
         return 0, math.nan, wall_ms
-    return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, wall_ms
+    return len(dev), sum(ms for _, ms in dev), wall_ms
 
 
 def _device_trace_by_card(fn):
@@ -731,9 +753,9 @@ def _device_trace_by_card(fn):
     measured)."""
     dev, wall_ms = _trace_events(fn)
     cards = {}
-    for e in dev:
-        ops, busy = cards.get(e.device_index, (0, 0.0))
-        cards[e.device_index] = (ops + 1, busy + e.time_range.elapsed_us() / 1e3)
+    for card, ms in dev:
+        ops, busy = cards.get(card, (0, 0.0))
+        cards[card] = (ops + 1, busy + ms)
     return cards, wall_ms
 
 
@@ -793,20 +815,26 @@ def _pairwise_bound(n, dtype, eps=0.0, rows=None):
                   (4 * n + 3 * rows) * dtype.itemsize, dtype)
 
 
-def _print_sixdof_sass(dtype):
-    """The loops of K1 as built, from its SASS (cuobjdump): instructions,
-    FP32 or FP64 pipe operations (an FMA counted as 2) and SFU results.  A
-    diagnostic of the issue slots the compiler spent, beside the
-    function's own count (``SIXDOF_TICK_OPS``); never the bound."""
+def _sixdof_build_report(dtype):
+    """(registers, SASS instructions of the tick loop) of K1's ``dtype``
+    instance as built, from ptxas's report and cuobjdump: a diagnostic of
+    the issue slots the compiler spent, beside the function's own count
+    (``SIXDOF_TICK_OPS``); never the bound.  Prints the loop's FP32 or FP64
+    pipe operations (an FMA counted as 2) and SFU results."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
     import sass_loops
     from elodin_tpu_torch.ops import _build
 
-    text = sass_loops.sass_text(str(_build.library_path("sixdof_rk4")))
     tag = "sixdof_rk4_kernelI" + ("f" if dtype == torch.float32 else "d")
-    for name, start, end, count, classes, fp32, fp64, _ in sass_loops.loop_counts(text, tag):
-        print(f"K1 SASS, {dtype}: loop 0x{start:x}-0x{end:x} of {count} instructions, "
-              f"FP32 ops {fp32}, FP64 ops {fp64}, MUFU {classes['MUFU']}")
+    (regs, spill_st, spill_ld), = sass_loops.ptxas_resources(
+        _build.build_log("sixdof_rk4"), tag).values()
+    text = sass_loops.sass_text(str(_build.library_path("sixdof_rk4")))
+    _, start, end, count, classes, fp32, fp64, _ = max(sass_loops.loop_counts(text, tag),
+                                                       key=lambda loop: loop[3])
+    print(f"K1 SASS, {dtype}: {regs} registers, spills {spill_st}/{spill_ld} bytes; tick loop "
+          f"0x{start:x}-0x{end:x} of {count} instructions, FP32 ops {fp32}, FP64 ops {fp64}, "
+          f"MUFU {classes['MUFU']}")
+    return regs, count
 
 
 def _rel_groups(ours, ref):
@@ -847,6 +875,7 @@ def _sixdof(el, interop):
     """Phases 3-6: the batched 6-dof RK4 path and its kernel; returns the
     kernel's entry of the kernels line."""
     from elodin_tpu_torch.models import batched_sixdof_init, build_batched_sixdof
+    from elodin_tpu_torch.ops import _build
     from elodin_tpu_torch.ops import sixdof_kernel as sk
 
     # 3. kernel vs plain version
@@ -906,9 +935,10 @@ def _sixdof(el, interop):
           f"{exec_.ticks_per_telemetry} ticks): build {t1 - t0:.3f} s, "
           f"run({MAIN_TICKS}) {t2 - t1:.3f} s, {ecs_rate:.4g} entity-steps/s")
 
-    # 5. kernel and plain version timed at the small and the bench width
+    # 5. kernel and plain version timed at the small, the main path's, a
+    # shard's and the bench width
     timing = {}
-    for n in (1024, BENCH_BODIES):
+    for n in (1024, MAIN_BODIES, SHARD_BODIES, BENCH_BODIES):
         cols = batched_sixdof_init(n, seed=0)
         for dtype in (torch.float32, torch.float64):
             args = dict(device="cuda", dtype=dtype)
@@ -945,17 +975,24 @@ def _sixdof(el, interop):
               f"{BENCH_TICKS} ticks, one call): {ops} device ops, busy "
               f"{busy:.4g} ms, wall {wall:.4g} ms, idle share {1 - busy / wall:.2%}")
 
-    # the bound of one tick at the bench width, from the function's
-    # operations; the SASS's loop counts beside it
+    # the bound of a tick at the main path's, a shard's and the bench
+    # width, from the function's operations; the plan, registers and SASS
+    # loop beside it
     bounds = {}
+    sm_count = _build.sm_count(torch.cuda.current_device())
     for dtype in (torch.float32, torch.float64):
-        _print_sixdof_sass(dtype)
-        ops, mufu, n = SIXDOF_TICK_OPS[dtype], SIXDOF_TICK_SFU, BENCH_BODIES
-        bounds[dtype] = _bound(n * ops, n * mufu, 30 * n * dtype.itemsize / BENCH_TICKS, dtype)
-        ms = timing[n, dtype][0]
-        print(f"K1 bound, {dtype}, {n} bodies: the function's {ops} ops and {mufu} SFU "
-              f"results per body-tick ->{bounds[dtype][0] * 1e3:.4g} us/tick ({bounds[dtype][1]}); "
-              f"kernel {ms * 1e3:.4g} us/tick, {bounds[dtype][0] / ms:.1%} of the bound")
+        regs, loop = _sixdof_build_report(dtype)
+        for n in (MAIN_BODIES, SHARD_BODIES, BENCH_BODIES):
+            ops, mufu = SIXDOF_TICK_OPS[dtype], SIXDOF_TICK_SFU
+            bounds[n, dtype] = _bound(n * ops, n * mufu, 30 * n * dtype.itemsize / BENCH_TICKS,
+                                      dtype)
+            ms, bound = timing[n, dtype][0], bounds[n, dtype][0]
+            threads = sk._launch_plan(n, sm_count)
+            print(f"K1 bound, {dtype}, {n} bodies: the function's {ops} ops and {mufu} SFU "
+                  f"results per body-tick -> {bound * 1e3:.4g} us/tick ({bounds[n, dtype][1]}); "
+                  f"kernel {ms * 1e3:.4g} us/tick, {bound / ms:.1%} of the bound; plan "
+                  f"{threads} threads a block, {-(-n // threads)} blocks; {regs} registers, "
+                  f"tick loop {loop} SASS instructions")
 
     return {
         "name": "sixdof_rk4",
@@ -966,8 +1003,8 @@ def _sixdof(el, interop):
         "max_abs_err": errs[MAIN_BODIES, torch.float32][1],
         "ms": timing[BENCH_BODIES, torch.float32][0],
         "plain_ms": timing[BENCH_BODIES, torch.float32][1],
-        "bound_ms": bounds[torch.float32][0],
-        "bound_by": _bound_by(bounds[torch.float32][1]),
+        "bound_ms": bounds[BENCH_BODIES, torch.float32][0],
+        "bound_by": _bound_by(bounds[BENCH_BODIES, torch.float32][1]),
         "library_ms": None,
         "units": (f"max_abs_err: float32 vs plain at {MAIN_BODIES} bodies x "
                   f"{MAIN_TICKS} ticks; ms, plain_ms, bound_ms: per tick at "
@@ -977,8 +1014,12 @@ def _sixdof(el, interop):
         "float64": {"max_abs_err": errs[MAIN_BODIES, torch.float64][1],
                     "ms": timing[BENCH_BODIES, torch.float64][0],
                     "plain_ms": timing[BENCH_BODIES, torch.float64][1],
-                    "bound_ms": bounds[torch.float64][0],
-                    "bound_by": _bound_by(bounds[torch.float64][1])},
+                    "bound_ms": bounds[BENCH_BODIES, torch.float64][0],
+                    "bound_by": _bound_by(bounds[BENCH_BODIES, torch.float64][1])},
+        **{f"at_{n}": {str(dtype).removeprefix("torch."): {
+            "ms": timing[n, dtype][0], "plain_ms": timing[n, dtype][1],
+            "bound_ms": bounds[n, dtype][0]}
+            for dtype in (torch.float32, torch.float64)} for n in (MAIN_BODIES, SHARD_BODIES)},
     }
 
 
@@ -2195,15 +2236,16 @@ def _peak_mib(peak):
 
 
 def _orbit_phase():
-    """Phase 32: orbit-retarget's value and gradient through 504 ticks on
-    the card (``el.rollout``, autograd): the finite difference at 60 ticks,
-    ``ORBIT_ADAM_STEPS`` Adam steps (``solve``'s rule) against the CPU's,
+    """Phase 32: orbit-retarget's value and gradient on the card
+    (``el.rollout``, autograd): the finite difference at 60 ticks,
+    ``ORBIT_ADAM_STEPS`` Adam steps (``solve``'s rule) at
+    ``ORBIT_ADAM_TICKS`` against the CPU's,
     ms per value-and-grad, card and CPU; on the card remat (8 segments)
     against plain and the peak card memory of each (the CPU's remat is
     held in the CPU tests); a device trace of one gradient."""
     from elodin_tpu_torch.examples.orbit_retarget import main as orbit
 
-    ticks, segs = orbit.TICKS, orbit.REMAT_SEGMENTS
+    ticks, segs = ORBIT_ADAM_TICKS, orbit.REMAT_SEGMENTS
     v0 = torch.tensor(ORBIT_V0, dtype=torch.float64)
 
     # the finite difference at 60 ticks on the card
@@ -2440,6 +2482,7 @@ def _split_kernels(mesh, label):
     the kernels line."""
     from elodin_tpu_torch.models.nbody import G
     from elodin_tpu_torch.models.sixdof_batch import batched_sixdof_init
+    from elodin_tpu_torch.ops import _build
     from elodin_tpu_torch.ops import pairwise as pw
     from elodin_tpu_torch.ops import sixdof_kernel as sk
     from elodin_tpu_torch.parallel.mesh import row_blocks
@@ -2517,7 +2560,7 @@ def _split_kernels(mesh, label):
         alone_ms = max(alone)
         bound = _pairwise_bound(NBODY_BODIES, dtype, rows=k2_rows)
         whole = _pairwise_bound(NBODY_BODIES, dtype)
-        plans = sorted({tuple(pw._launch_plan(NBODY_BODIES, pw._sm_count(0), b - a))
+        plans = sorted({tuple(pw._launch_plan(NBODY_BODIES, _build.sm_count(0), b - a))
                         for a, b in row_blocks(NBODY_BODIES, shards)})
         print(f"{label}: K2 {dtype}, {NBODY_BODIES} bodies, {shards} row blocks (plans "
               f"{plans}): sharded vs " + ", ".join(

@@ -71,3 +71,12 @@ def build_log(name: str) -> str:
     """nvcc/ptxas output of the current build of ``name`` ('' if none)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, which the kernels' launch
+    plans are made for."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -150,11 +150,6 @@ def _launch_plan(n: int, sm_count: int, rows: int | None = None) -> Plan:
 
 
 @functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("pairwise_gravity")
     if lib.pairwise_gravity_tile() != TILE:
@@ -221,7 +216,7 @@ def _pairwise_gravity_cuda(pos, mass, g: float, eps: float, plan: Plan | None = 
         return out
     launcher = getattr(_library(), _LAUNCHERS[pos.dtype])
     if plan is None:
-        plan = _launch_plan(n, _sm_count(pos.device.index), rows)
+        plan = _launch_plan(n, _build.sm_count(pos.device.index), rows)
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         # eps^2 formed in double, as the JAX kernel's Python float is

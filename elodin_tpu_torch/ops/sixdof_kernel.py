@@ -4,9 +4,10 @@
 ``sixdof_rollout`` runs ``ticks`` RK4 ticks of the flagship model
 (``models/sixdof_batch``) for N independent bodies.  On a CUDA tensor it
 launches the hand-written kernel ``csrc/sixdof_rk4.cu`` (one thread per
-body, state in registers, the tick loop inside the kernel) or raises; on a
-CPU tensor it runs ``_rollout_reference``, the plain PyTorch version of
-the same per-channel algebra with a Python tick loop.
+body, state in registers, the tick loop inside the kernel) in blocks of
+the size ``_launch_plan`` picks from N, or raises; on a CPU tensor it
+runs ``_rollout_reference``, the plain PyTorch version of the same
+per-channel algebra with a Python tick loop.
 
 Layout: channel-major ``(13, N)`` state (qx..qw, px..pz, wx..wz, vx..vz)
 and ``(4, N)`` parameters (1/Ixx, 1/Iyy, 1/Izz, 1/m), contiguous, with no
@@ -177,6 +178,26 @@ def _rollout_reference(u, par, dt: float, ticks: int):
 # ---------------------------------------------------------------------------
 
 
+MIN_THREADS, MAX_THREADS = 32, 256  # the launcher's limits on threads a block
+
+
+@functools.cache
+def _launch_plan(n: int, sm_count: int) -> int:
+    """Threads a block of the kernel (one thread a body) for ``n >= 1``
+    bodies on a card of ``sm_count`` SMs, as ``scripts/sixdof_plan_sweep.py``
+    measured it.  Cached: a caller asks for the same N every call.
+
+    128 where that still gives every SM a block, else the largest multiple
+    of 32 that does (or 32), so a narrow N spreads over the SMs.  Every
+    body is one thread whatever the block size, so the plan changes no bit
+    of the result; measured, it moves the time by a few % at most between
+    32 and 128 threads (a block of 256 left SMs idle at 8192 bodies)."""
+    threads = 128
+    while threads > MIN_THREADS and -(-n // threads) < sm_count:
+        threads -= 32
+    return threads
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("sixdof_rk4")
@@ -187,6 +208,7 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int,  # n nticks
             ctypes.c_double, ctypes.c_double, ctypes.c_double,  # dt mu thrust
             ctypes.c_double, ctypes.c_double,  # torque drag
+            ctypes.c_int,  # threads a block (the plan)
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -198,11 +220,12 @@ def build() -> None:
     _library()
 
 
-def _rollout_cuda(u, par, dt: float, ticks: int):
-    """Launch csrc/sixdof_rk4.cu on ``u``'s device and current stream.
-    The kernel has no backward pass (nor has the JAX package's), so an
-    input that requires grad is refused while autograd records: the result
-    would carry no gradient."""
+def _rollout_cuda(u, par, dt: float, ticks: int, threads: int | None = None):
+    """Launch csrc/sixdof_rk4.cu on ``u``'s device and current stream in
+    blocks of ``threads`` (``_launch_plan``'s by default; the launcher
+    refuses a block size outside its limits, and this raises).  The kernel has no backward pass
+    (nor has the JAX package's), so an input that requires grad is refused
+    while autograd records: the result would carry no gradient."""
     global LAUNCHES
     if torch.is_grad_enabled() and (u.requires_grad or par.requires_grad):
         raise RuntimeError(
@@ -228,12 +251,14 @@ def _rollout_cuda(u, par, dt: float, ticks: int):
         return out
     launcher = getattr(_library(), _LAUNCHERS[u.dtype])
     with torch.cuda.device(u.device):
+        if threads is None:
+            threads = _launch_plan(n, _build.sm_count(torch.cuda.current_device()))
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = launcher(u.data_ptr(), par.data_ptr(), out.data_ptr(), n,
                        int(ticks), float(dt), model.MU, model.THRUST,
-                       model.TORQUE, model.DRAG, stream)
+                       model.TORQUE, model.DRAG, int(threads), stream)
     if err != 0:
-        raise RuntimeError(f"sixdof_rk4 launch failed: cudaError {err}")
+        raise RuntimeError(f"sixdof_rk4 launch failed: cudaError {err} ({threads} threads a block)")
     LAUNCHES += 1
     return out
 

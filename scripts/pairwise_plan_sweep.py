@@ -234,7 +234,7 @@ def main() -> int:
         if err != 0:
             raise RuntimeError(f"launch failed: cudaError {err}, plan {plan}")
 
-    sm = pw._sm_count(torch.cuda.current_device())
+    sm = _build.sm_count(torch.cuda.current_device())
     rows = []
 
     def run(n, dtype, variant, plan, chosen, pos, mass, ref, scale):

@@ -12,7 +12,9 @@ its instruction count and the count of each class: FP32 (F*: FADD, FMUL,
 FFMA, FSETP, FSEL, FMNMX...), FP64 (D*), MUFU (the SFU), shared-memory
 loads (LDS), and the rest.  ``ops`` counts a pipe's arithmetic the way
 the published peaks do: an FMA (FFMA, DFMA) as 2, every other FP32 or
-FP64 instruction as 1.  ``loop_counts`` is the importable form.
+FP64 instruction as 1.  ``loop_counts`` is the importable form;
+``ptxas_resources`` reads the registers and spills of each function from
+ptxas's report (``nvcc -Xptxas -v``).
 """
 
 import argparse
@@ -25,6 +27,9 @@ from collections import Counter
 
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSN = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_USED = re.compile(r"Used (\d+) registers")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _BRA = re.compile(r"\b(?:BRA|BRX)\b[^0-9x]*(0x[0-9a-f]+)")
 
 
@@ -97,6 +102,27 @@ def loop_counts(text: str, kernel: str = ""):
             loops.append((name, target, addr, len(body), classes, fp32, fp64,
                           Counter(o.split(".")[0] for _, o in body)))
     return loops
+
+
+def ptxas_resources(log: str, kernel: str = ""):
+    """{function: (registers, spill store bytes, spill load bytes)} of every
+    entry function whose name holds ``kernel``, from ptxas's report."""
+    out, name, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = _SPILL.search(line)
+        if m and name is not None:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = _USED.search(line)
+        if m and name is not None:
+            if kernel in name:
+                out[name] = (int(m.group(1)), *spill)
+            name = None
+    return out
 
 
 def main() -> int:

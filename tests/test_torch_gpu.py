@@ -24,6 +24,7 @@ from elodin_tpu_torch.examples.rocket import batched as rocket_batched
 from elodin_tpu_torch.examples.three_body import main as three_body
 from elodin_tpu_torch.models.nbody import G, build_nbody
 from elodin_tpu_torch.models.sixdof_batch import batched_sixdof_init
+from elodin_tpu_torch.ops import _build
 from elodin_tpu_torch.ops import pairwise as pw
 from elodin_tpu_torch.ops import sixdof_kernel as sk
 from torch_port_util import rel_err
@@ -74,6 +75,77 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         sk._rollout_cuda(u, par[:, :4], DT, 1)
     with pytest.raises(ValueError):
         sk._rollout_cuda(u.cpu(), par.cpu(), DT, 1)
+
+
+# every block size the launcher takes: one thread a body whatever the plan
+K1_PLANS = range(sk.MIN_THREADS, sk.MAX_THREADS + 1, 32)
+K1_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+
+
+def _k1_groups_rel(ours, ref):
+    """max |Δ| / max |ref| over the channel groups of a (13, N) state."""
+    return max(rel_err(ours[a:b].flatten(), ref[a:b].flatten())
+               for a, b in ((0, 4), (4, 7), (7, 10), (10, 13)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 127, 129, 8192, 32768, 32769, 131072])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_every_plan_is_bitwise_one_result(cuda, n, dtype):
+    """Every block size the launcher takes gives the same bits, within the
+    gate of the plain version; a repeat launch is bitwise."""
+    u, par = sk.pack_state(*batched_sixdof_init(n, seed=6), device=cuda, dtype=dtype)
+    ref = sk._rollout_reference(u, par, DT, 10)
+    first = sk._rollout_cuda(u, par, DT, 10)
+    assert torch.isfinite(first).all()
+    assert _k1_groups_rel(first, ref) <= K1_TOL[dtype]
+    for threads in K1_PLANS:
+        assert torch.equal(sk._rollout_cuda(u, par, DT, 10, threads), first), threads
+    assert torch.equal(sk._rollout_cuda(u, par, DT, 10), first)
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_a_plan_outside_its_limits(cuda):
+    u, par = sk.pack_state(*batched_sixdof_init(64, seed=7), device=cuda, dtype=torch.float32)
+    before = sk.LAUNCHES
+    for threads in (0, 16, 48, 100, 288, 512, 1024, -32):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            sk._rollout_cuda(u, par, DT, 2, threads)
+    assert sk.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_body_at_rest_gets_exactly_zero_drag(cuda, dtype, monkeypatch):
+    """v = 0 gives |v| = 0 * rsqrt(min normal), an exact zero drag and no
+    NaN.  With gravity, thrust and torque off, a body at rest stays exactly
+    where it is, in the kernel as in the plain version; with them on, it is
+    finite and within the gate."""
+    pos, vel, inertia = batched_sixdof_init(64, seed=8)
+    vel = np.zeros_like(vel)
+    u, par = sk.pack_state(pos, vel, inertia, device=cuda, dtype=dtype)
+    ours = sk._rollout_cuda(u, par, DT, 20)
+    assert torch.isfinite(ours).all()
+    assert _k1_groups_rel(ours, sk._rollout_reference(u, par, DT, 20)) <= K1_TOL[dtype]
+    for name in ("MU", "THRUST", "TORQUE"):
+        monkeypatch.setattr(sk.model, name, 0.0)
+    for out in (sk._rollout_cuda(u, par, DT, 20), sk._rollout_reference(u, par, DT, 20)):
+        assert torch.isfinite(out).all()
+        assert torch.equal(out[4:], u[4:])  # position, angular and linear velocity
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("radius", [4e8, 1e10, 1e12])
+def test_kernel_body_far_out_matches_the_plain_version(cuda, dtype, radius):
+    """Far from the planet (|r| up to 1e12 m, g ~ 1e-10 m/s^2) the fast
+    reciprocal square root keeps the gravity within the gate."""
+    pos, vel, inertia = batched_sixdof_init(256, seed=9)
+    pos[:, 4:] *= radius / np.linalg.norm(pos[:, 4:], axis=1, keepdims=True)
+    u, par = sk.pack_state(pos, vel, inertia, device=cuda, dtype=dtype)
+    ours = sk._rollout_cuda(u, par, DT, 50)
+    assert torch.isfinite(ours).all()
+    assert _k1_groups_rel(ours, sk._rollout_reference(u, par, DT, 50)) <= K1_TOL[dtype]
 
 
 # ---------------------------------------------------------------------------
@@ -566,7 +638,7 @@ def test_pairwise_gravity_sharded_on_one_card(cuda, dtype, tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_pairwise_row_block_is_the_whole_call_under_one_plan(cuda, dtype):
     pos, mass = _nbody_inputs(4099, cuda, dtype)
-    plan = pw._launch_plan(4099, pw._sm_count(pos.device.index))
+    plan = pw._launch_plan(4099, _build.sm_count(pos.device.index))
     whole = pw._pairwise_gravity_cuda(pos, mass, G, 0.0, plan)
     step = 32 * plan.r
     for row0, rows in ((0, 4099), (0, 1), (step, 1000), (32 * step, 4099 - 32 * step),

@@ -147,3 +147,41 @@ def test_kernel_refuses_an_input_that_requires_grad():
     pos, _ = sk.sixdof_rollout(cols[0], vel, cols[2], DT, 2, device="cpu", dtype=torch.float64)
     (g,) = torch.autograd.grad(pos[:, 4:].sum(), vel)
     assert torch.isfinite(g).all() and g[:, 3:].abs().min() > 0
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch plan (``_launch_plan``), held on the CPU: the C
+# launcher refuses a block size outside [32, 256] or not a multiple of 32
+# ---------------------------------------------------------------------------
+
+PLAN_SIZES = sorted({*range(1, 300), *(k * 32 + d for k in (4, 31, 32, 33, 132, 133, 256, 1024,
+                                                           4096, 4224, 8192)
+                                       for d in (-1, 0, 1)),
+                     8191, 8192, 16384, 32767, 32768, 32769, 131072, 262143, 262144})
+
+
+@pytest.mark.parametrize("sm_count", [1, 66, 114, 132])
+def test_launch_plan_covers_every_body_once(sm_count):
+    """One thread a body: the plan's blocks hold every body exactly once
+    (the last block ragged, none empty), within the launcher's limits."""
+    for n in PLAN_SIZES:
+        threads = sk._launch_plan(n, sm_count)
+        assert threads % 32 == 0 and sk.MIN_THREADS <= threads <= sk.MAX_THREADS
+        blocks = -(-n // threads)
+        assert 1 <= blocks <= 2**31 - 1
+        assert (blocks - 1) * threads < n <= blocks * threads
+        # a narrow N spreads over the SMs: blocks of 128 only where that
+        # still gives every SM a block
+        assert threads == 128 or blocks >= sm_count or threads == sk.MIN_THREADS
+
+
+def test_launch_plan_is_cached_and_measured_at_the_timed_widths():
+    before = sk._launch_plan.cache_info().hits
+    first = sk._launch_plan(32768, 132)
+    assert sk._launch_plan(32768, 132) == first
+    assert sk._launch_plan.cache_info().hits > before
+    # the plans scripts/sixdof_plan_sweep.py times on a 132-SM card
+    assert sk._launch_plan(131072, 132) == 128
+    assert first == 128
+    assert sk._launch_plan(8192, 132) == 32
+    assert sk._launch_plan(1, 132) == 32
