@@ -706,6 +706,8 @@ def _trace_events(fn, attempts=TRACE_ATTEMPTS):
     same names left out) that ``prof.events()`` keeps as device events,
     without the tree of Python events that ``events()`` builds, which took
     seconds for every 10**4 device ops and most of a long trace's time.
+    A ``record_function`` span (the port's ``tick_metrics.span``) also shows
+    on the device's timeline, as a user annotation: it is no op.
     The profiler at times hands back a trace with no device op at all;
     fn() is then traced again, up to ``attempts`` calls in all, and if none
     of them records a device op the result is ([], wall ms of the last)."""
@@ -727,7 +729,7 @@ def _trace_events(fn, attempts=TRACE_ATTEMPTS):
         dev = [(e.device_index(), e.duration_ns() / 1e6)
                for e in prof.profiler.kineto_results.events()
                if e.device_type() == DeviceType.CUDA and not _filter_name(e.name())
-               and not e.is_hidden_event()]
+               and not e.is_hidden_event() and not e.is_user_annotation()]
         if dev:
             return dev, wall_ms
         print(f"device trace: the profiler recorded no device op (call {attempt} of "

@@ -16,7 +16,9 @@ start it warns and steps headless), into ``db_path`` or
 closes when ``run`` returns, and the returned ``Exec`` no longer feeds it.
 ``bench --profile`` writes
 ``profile-metrics.json`` and the ``torch.profiler`` table of one tick,
-``step.torch_profile.txt``, into ``profile_output/`` beside the sim.
+``step.torch_profile.txt``, into ``profile_output/`` beside the sim; the
+port's spans (``tick_metrics.span``: the tick, each system, the edge fold)
+are rows of that table.
 """
 
 from __future__ import annotations

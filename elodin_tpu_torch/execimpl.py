@@ -47,7 +47,11 @@ from .interop import columns_from_numpy, columns_to_numpy
 from .parallel import distributed
 from .parallel.mesh import Mesh, row_windows, shard_cols
 from .system import build_step
+from .tick_metrics import span
 from .world import WorldMeta
+
+# Exec's spans (tick_metrics.span)
+RUN, SYNC = "exec.run", "exec.sync"
 
 
 class Profiler:
@@ -396,18 +400,28 @@ class _LockstepSession:
         base = (ex._tick + 1) * dt
         outs = []
         try:
+            # timed as _run_batch times its strides, so Exec.profile() counts
+            # these ticks beside them: the steps, up to the copy of what the
+            # session sends back, which waits for them, less the commits,
+            # which stay between the steps so the card works while they run
+            t0 = time.perf_counter()
+            commit_s = 0.0
             for i in range(self.hold_ticks):
                 cols = ex._step(cols)
                 outs.append(self._gather(cols))
                 if self.emit:
+                    c0 = time.perf_counter()
                     ex._commit(base + i * dt, cols)
+                    commit_s += time.perf_counter() - c0
         finally:
             ex._end_batch()
         ex.cols = cols
         ex._tick += self.hold_ticks
         ex.profiler.ticks += self.hold_ticks
         out = outs[0] if self.hold_ticks == 1 else torch.stack(outs)
-        return out.cpu().numpy()
+        out = out.cpu().numpy()
+        ex.profiler.kernel_s += time.perf_counter() - t0 - commit_s
+        return out
 
 
 class Exec:
@@ -528,22 +542,23 @@ class Exec:
         stride.  ``show_progress`` is accepted as the JAX package accepts
         it, and shows nothing.  The calling thread becomes the step loop's
         (``write_component``)."""
-        self._loop_thread = threading.get_ident()
-        remaining = int(ticks)
-        if self.max_ticks is not None:
-            remaining = min(remaining, max(0, self.max_ticks - self._tick))
-        stride = self.ticks_per_telemetry
-        while remaining > 0:
-            if remaining >= stride:
-                n = min(remaining // stride, _MAX_BATCHES)
-                self._run_batch(n, stride)
-                remaining -= n * stride
-            else:
-                # an incomplete trailing batch still commits
-                self._run_batch(1, remaining)
-                remaining = 0
-            if is_canceled is not None and _call_canceled(is_canceled):
-                return
+        with span(RUN):
+            self._loop_thread = threading.get_ident()
+            remaining = int(ticks)
+            if self.max_ticks is not None:
+                remaining = min(remaining, max(0, self.max_ticks - self._tick))
+            stride = self.ticks_per_telemetry
+            while remaining > 0:
+                if remaining >= stride:
+                    n = min(remaining // stride, _MAX_BATCHES)
+                    self._run_batch(n, stride)
+                    remaining -= n * stride
+                else:
+                    # an incomplete trailing batch still commits
+                    self._run_batch(1, remaining)
+                    remaining = 0
+                if is_canceled is not None and _call_canceled(is_canceled):
+                    return
 
     def _run_batch(self, n: int, stride: int) -> None:
         """``n`` telemetry batches of ``stride`` ticks, each committed to
@@ -557,7 +572,8 @@ class Exec:
                 t0 = time.perf_counter()
                 for _ in range(stride):
                     cols = self._step(cols)
-                self._sync()
+                with span(SYNC):
+                    self._sync()
                 self.profiler.kernel_s += time.perf_counter() - t0
                 self.cols = cols
                 self._tick += stride

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models import sixdof_batch as model
+from ..tick_metrics import span
 from . import _build
 
 N_STATE = 13  # qx qy qz qw | px py pz | wx wy wz | vx vy vz
@@ -33,27 +34,32 @@ LAUNCHES = 0
 
 _LAUNCHERS = {torch.float32: "sixdof_rk4_f32", torch.float64: "sixdof_rk4_f64"}
 
+# the wrapper's spans (tick_metrics.span)
+ROLLOUT, PACK, LAUNCH, UNPACK = "rollout", "rollout.pack", "rollout.launch", "rollout.unpack"
+
 
 def pack_state(pos, vel, inertia, *, device, dtype):
     """(N,7) / (N,6) / (N,7) component columns -> ((13, N) state,
     (4, N) params), contiguous tensors of ``dtype`` on ``device``."""
-    pos, vel, inertia = (
-        (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x)))
-        .to(device=device, dtype=dtype)
-        for x in (pos, vel, inertia))
-    n = pos.shape[0]
-    if pos.shape != (n, 7) or vel.shape != (n, 6) or inertia.shape != (n, 7):
-        raise ValueError(
-            f"expected (N,7)/(N,6)/(N,7) columns, got {tuple(pos.shape)}/"
-            f"{tuple(vel.shape)}/{tuple(inertia.shape)}")
-    u = torch.cat([pos.T, vel.T]).contiguous()
-    par = torch.cat([1.0 / inertia[:, 0:3].T, 1.0 / inertia[:, 6:7].T]).contiguous()
-    return u, par
+    with span(PACK):
+        pos, vel, inertia = (
+            (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x)))
+            .to(device=device, dtype=dtype)
+            for x in (pos, vel, inertia))
+        n = pos.shape[0]
+        if pos.shape != (n, 7) or vel.shape != (n, 6) or inertia.shape != (n, 7):
+            raise ValueError(
+                f"expected (N,7)/(N,6)/(N,7) columns, got {tuple(pos.shape)}/"
+                f"{tuple(vel.shape)}/{tuple(inertia.shape)}")
+        u = torch.cat([pos.T, vel.T]).contiguous()
+        par = torch.cat([1.0 / inertia[:, 0:3].T, 1.0 / inertia[:, 6:7].T]).contiguous()
+        return u, par
 
 
 def unpack_state(u):
     """(13, N) -> (pos (N,7), vel (N,6)) contiguous tensors."""
-    return u[0:7].T.contiguous(), u[7:13].T.contiguous()
+    with span(UNPACK):
+        return u[0:7].T.contiguous(), u[7:13].T.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +272,8 @@ def _rollout_cuda(u, par, dt: float, ticks: int, threads: int | None = None):
 def _rollout(u, par, dt: float, ticks: int):
     if u.device.type == "cpu":
         return _rollout_reference(u, par, dt, ticks)
-    return _rollout_cuda(u, par, dt, ticks)
+    with span(LAUNCH):
+        return _rollout_cuda(u, par, dt, ticks)
 
 
 def sixdof_rollout(pos, vel, inertia, dt: float, ticks: int, *, device,
@@ -277,8 +284,9 @@ def sixdof_rollout(pos, vel, inertia, dt: float, ticks: int, *, device,
     On a CUDA device this launches the CUDA kernel (or raises; it refuses
     an input that requires grad); on the CPU it runs the plain PyTorch
     version, which is differentiable."""
-    u, par = pack_state(pos, vel, inertia, device=device, dtype=dtype)
-    return unpack_state(_rollout(u, par, dt, ticks))
+    with span(ROLLOUT):
+        u, par = pack_state(pos, vel, inertia, device=device, dtype=dtype)
+        return unpack_state(_rollout(u, par, dt, ticks))
 
 
 def sixdof_rollout_reference(pos, vel, inertia, dt: float, ticks: int, *,

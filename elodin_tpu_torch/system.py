@@ -32,6 +32,7 @@ from . import _config
 from .component import Component
 from .entity import RevEdge, TotalEdge
 from .parallel.distributed import current_window
+from .tick_metrics import span
 
 # which path each TotalEdge edge_fold took since import (or since a caller
 # reset the counts to 0), the dense masked sum or the exact sequential fold,
@@ -40,6 +41,10 @@ TOTAL_FOLDS = {"dense": 0, "sequential": 0, "probes": 0}
 
 # right-hand entities per step of the dense TotalEdge fold
 DENSE_FOLD_CHUNK = 1024
+
+# spans (tick_metrics.span): a tick, the dense edge fold, the additive probe;
+# each FnSystem and LambdaSystem names its own "system.<name>"
+TICK, FOLD_DENSE, FOLD_PROBE = "tick", "fold.dense", "fold.probe"
 
 
 def from_array(cls, arr):
@@ -245,6 +250,7 @@ class FnSystem(System):
     def __init__(self, func: Callable, name: str | None = None):
         self.func = func
         self.name = name or getattr(func, "__name__", repr(func))
+        self._span = "system." + self.name
         sig = inspect.signature(func)
         self.params = list(sig.parameters.values())
         self.return_annotation = sig.return_annotation
@@ -268,14 +274,15 @@ class FnSystem(System):
         self.fold_verdicts: dict = {}
 
     def call(self, builder: SystemBuilder) -> None:
-        args = [p.annotation.from_builder(p.annotation, builder, [])
-                for p in self.params]
-        for a in args:
-            if isinstance(a, GraphQuery):
-                a.verdicts = self.fold_verdicts
-        output = self.func(*args)
-        if output is not None:
-            output.output(builder, [])
+        with span(self._span):
+            args = [p.annotation.from_builder(p.annotation, builder, [])
+                    for p in self.params]
+            for a in args:
+                if isinstance(a, GraphQuery):
+                    a.verdicts = self.fold_verdicts
+            output = self.func(*args)
+            if output is not None:
+                output.output(builder, [])
 
     def __repr__(self):
         return f"<system {self.name}>"
@@ -288,9 +295,11 @@ class LambdaSystem(System):
     def __init__(self, fn: Callable[[SystemBuilder], None], name: str = ""):
         self.fn = fn
         self.name = name
+        self._span = "system." + name
 
     def call(self, builder: SystemBuilder) -> None:
-        self.fn(builder)
+        with span(self._span):
+            self.fn(builder)
 
     def __repr__(self):
         return f"<system {self.name}>"
@@ -390,9 +399,10 @@ def build_step(meta, sys_obj):
     full = Pipe(increment_sim_tick_system, as_system(sys_obj))
 
     def step(state):
-        b = SystemBuilder(meta, dict(state))
-        full.call(b)
-        return b.cols
+        with span(TICK):
+            b = SystemBuilder(meta, dict(state))
+            full.call(b)
+            return b.cols
 
     return step
 
@@ -795,11 +805,12 @@ class GraphQuery:
         """``_fold_is_additive``; under a row window every rank must reach
         the same verdict (its draws do not depend on the rank's rows), which
         one all-reduce checks."""
-        verdict = self._fold_is_additive(left_query, right_query, init_value, fold_fn)
-        window = left_query.builder.window
-        if window is not None:
-            verdict = window.comm.agree(verdict, "the additive probe's verdict")
-        return verdict
+        with span(FOLD_PROBE):
+            verdict = self._fold_is_additive(left_query, right_query, init_value, fold_fn)
+            window = left_query.builder.window
+            if window is not None:
+                verdict = window.comm.agree(verdict, "the additive probe's verdict")
+            return verdict
 
     def _edge_fold_total(self, left_query: Query, right_query: Query,
                          return_type, init_value, fold_fn,
@@ -849,33 +860,34 @@ class GraphQuery:
             return left_query._args(lvals) + right_query._args(rvals)
 
         if additive:
-            TOTAL_FOLDS["dense"] += 1
-            zero = pytree.tree_unflatten([torch.zeros_like(x) for x in init],
-                                         init_spec)
+            with span(FOLD_DENSE):
+                TOTAL_FOLDS["dense"] += 1
+                zero = pytree.tree_unflatten([torch.zeros_like(x) for x in init],
+                                             init_spec)
 
-            def contrib(lvals, alt_vals, rvals, m):
-                rvals = [torch.where(m, rv, a) for rv, a in zip(rvals, alt_vals)]
-                return pytree.tree_flatten(fold_fn(zero, *fold_args(lvals, rvals)))[0]
+                def contrib(lvals, alt_vals, rvals, m):
+                    rvals = [torch.where(m, rv, a) for rv, a in zip(rvals, alt_vals)]
+                    return pytree.tree_flatten(fold_fn(zero, *fold_args(lvals, rvals)))[0]
 
-            pair = vmap(vmap(contrib, in_dims=(None, None, 0, 0)),  # over j
-                        in_dims=(0, 0, None, 0))  # over i
-            chunk = min(n_j, DENSE_FOLD_CHUNK)
-            n_chunks = -(-n_j // chunk)
-            pad = n_chunks * chunk - n_j
-            if pad:
-                rbufs = [torch.cat([b, b[:1].expand((pad,) + b.shape[1:])])
-                         for b in rbufs]
-                rid = torch.cat([rid, torch.full((pad,), -1, dtype=torch.int64,
-                                                 device=device)])
-            acc = [x.expand((n_i,) + x.shape) for x in init]
-            for c in range(n_chunks):
-                part = slice(c * chunk, (c + 1) * chunk)
-                rid_c = rid[part]
-                mask = (lid[:, None] != rid_c[None, :]) & (rid_c[None, :] >= 0)
-                outs = pair(lbufs, alt, [b[part] for b in rbufs], mask)
-                acc = [a + torch.where(_bcast_mask(mask, o.dim()), o, 0).sum(dim=1)
-                       for a, o in zip(acc, outs)]
-            out_flat = acc
+                pair = vmap(vmap(contrib, in_dims=(None, None, 0, 0)),  # over j
+                            in_dims=(0, 0, None, 0))  # over i
+                chunk = min(n_j, DENSE_FOLD_CHUNK)
+                n_chunks = -(-n_j // chunk)
+                pad = n_chunks * chunk - n_j
+                if pad:
+                    rbufs = [torch.cat([b, b[:1].expand((pad,) + b.shape[1:])])
+                             for b in rbufs]
+                    rid = torch.cat([rid, torch.full((pad,), -1, dtype=torch.int64,
+                                                     device=device)])
+                acc = [x.expand((n_i,) + x.shape) for x in init]
+                for c in range(n_chunks):
+                    part = slice(c * chunk, (c + 1) * chunk)
+                    rid_c = rid[part]
+                    mask = (lid[:, None] != rid_c[None, :]) & (rid_c[None, :] >= 0)
+                    outs = pair(lbufs, alt, [b[part] for b in rbufs], mask)
+                    acc = [a + torch.where(_bcast_mask(mask, o.dim()), o, 0).sum(dim=1)
+                           for a, o in zip(acc, outs)]
+                out_flat = acc
         else:
             TOTAL_FOLDS["sequential"] += 1
 

@@ -5,14 +5,23 @@ summary at world_builder.rs:596-598).
 
 A host-only copy of ``elodin_tpu/tick_metrics.py``: importing anything
 under ``elodin_tpu`` first runs its ``__init__``, which imports JAX, so
-the port keeps its own."""
+the port keeps its own.  Beside the copy, the port's spans: ``span(name)``
+records where the host was while a ``torch.profiler`` records, on the
+clock that stamps the profiler's host events, and does nothing otherwise;
+``spans()`` and ``self_ns`` read them."""
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import itertools
 import json
 import math
 import os
+import threading
 import time
+
+import torch.autograd.profiler as _profiler
 
 
 class Log2Histogram:
@@ -62,10 +71,10 @@ class Log2Histogram:
 
 class TickMetrics:
     """Per-phase histograms for the serve loop (tick_metrics.rs:1-60):
-    pre_step / copy_db_to_world / run / commit / post_step / pacing.
-    ``commit`` is the telemetry writer thread's, one sample a run batch."""
+    pre_step / run / commit / post_step / pacing.  ``commit`` is the
+    telemetry writer thread's, one sample a run batch."""
 
-    PHASES = ("pre_step", "copy_to_world", "run", "commit", "post_step", "pacing")
+    PHASES = ("pre_step", "run", "commit", "post_step", "pacing")
 
     def __init__(self):
         self.hist = {p: Log2Histogram() for p in self.PHASES}
@@ -121,13 +130,117 @@ class _PhaseTimer:
         return False
 
 
+# -- spans --------------------------------------------------------------------
+
+SPAN_CAP = 1 << 18  # spans kept; past it the oldest are dropped
+
+
+class Span:
+    """One span of the host's time: ``name``; ``start_ns`` and ``end_ns``
+    by ``time.time_ns()``, the clock torch's profiler stamps its host events
+    with (``end_ns`` is 0 while the span is open); ``index``, its number
+    among every span opened since import; ``parent``, the index of the span
+    that enclosed it on its thread (-1 at the top); ``root``, the index of
+    the outermost one (its own at the top), which the spans of one call
+    share."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "index", "parent", "root", "child_ns")
+
+    def __init__(self, name: str, index: int, parent: "Span | None"):
+        self.name = name
+        self.index = index
+        self.parent = -1 if parent is None else parent.index
+        self.root = index if parent is None else parent.root
+        self.end_ns = 0
+        self.child_ns = 0  # the time its children cover: they nest on one thread
+        self.start_ns = time.time_ns()
+
+
+class _SpanBuffer:
+    """The spans in the order they opened, at most ``cap``; each thread's
+    open spans."""
+
+    def __init__(self, cap: int = SPAN_CAP):
+        self.spans = collections.deque(maxlen=cap)
+        self.count = itertools.count()
+        self.local = threading.local()
+
+    def open(self, name: str) -> Span:
+        stack = self.local.__dict__.setdefault("stack", [])
+        s = Span(name, next(self.count), stack[-1] if stack else None)
+        stack.append(s)
+        self.spans.append(s)
+        return s
+
+    def close(self, s: Span) -> None:
+        stack = self.local.stack
+        stack.pop()
+        if stack:
+            stack[-1].child_ns += s.end_ns - s.start_ns
+
+    def dropped(self) -> int:
+        return self.spans[-1].index + 1 - len(self.spans) if self.spans else 0
+
+
+_BUFFER = _SpanBuffer()
+_OFF = contextlib.nullcontext()
+
+
+class _Recorded:
+    """A span while a profiler records: in the buffer, and as a
+    ``record_function`` of the same name inside it."""
+
+    __slots__ = ("name", "span", "annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.span = _BUFFER.open(self.name)
+        self.annotation = _profiler.record_function(self.name)
+        self.annotation.__enter__()
+        return self.span
+
+    def __exit__(self, *exc):
+        try:
+            self.annotation.__exit__(*exc)
+        finally:
+            self.span.end_ns = time.time_ns()
+            _BUFFER.close(self.span)
+        return False
+
+
+def span(name: str):
+    """A context manager over the host's work named ``name``.  While no
+    ``torch.profiler`` records, one shared context that records nothing;
+    while one records, a ``Span`` appended to the buffer (``spans()``) and a
+    ``record_function(name)``, so the profile's table and trace show it too."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Recorded(name)
+
+
+def spans() -> list:
+    """The ``Span``s kept, in the order they opened (``dropped_spans()``
+    older ones were dropped past ``SPAN_CAP``)."""
+    return list(_BUFFER.spans)
+
+
+def dropped_spans() -> int:
+    return _BUFFER.dropped()
+
+
+def self_ns(s: Span) -> int:
+    """``s``'s duration less what its children cover."""
+    return s.end_ns - s.start_ns - s.child_ns
+
+
 class Liveness:
     """Sim liveness heartbeat (parity: libs/s10/src/liveness.rs — a UDP
     beacon the supervisor uses to kill hung sims)."""
 
     def __init__(self, port: int | None = None, interval: float = 1.0):
         import socket
-        import threading
 
         self.port = port
         self.interval = interval

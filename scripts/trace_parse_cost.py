@@ -44,7 +44,7 @@ def main() -> int:
         t1 = time.perf_counter()
         raw = [e for e in prof.profiler.kineto_results.events()
                if e.device_type() == DeviceType.CUDA and not _filter_name(e.name())
-               and not e.is_hidden_event()]
+               and not e.is_hidden_event() and not e.is_user_annotation()]
         raw_busy = sum(e.duration_ns() for e in raw) / 1e6
         t2 = time.perf_counter()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]

@@ -159,6 +159,8 @@ def test_bench_profile_writes_its_files(tmp_path, monkeypatch, capsys):
     assert metrics["ticks"] == 5
     table = (out / "step.torch_profile.txt").read_text()
     assert "aten::" in table
+    # the port's spans show as rows of their own: the tick and each system
+    assert "system.increment_sim_tick" in table and " tick " in table
     assert exec_.tick() == 5  # the profiled tick is not committed
 
 

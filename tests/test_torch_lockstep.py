@@ -21,6 +21,7 @@ Every socket binds a port the system picked free.
 import socket
 import struct
 import threading
+import time
 import typing as ty
 from dataclasses import dataclass
 
@@ -149,6 +150,44 @@ def test_session_writes_no_command_buffer_through():
     session.cmd_bufs["ctrl"][0] = 99.0
     np.testing.assert_array_equal(ex.column_array("ctrl"), [3.0])
     assert ex.history_frame("v.ctrl")["v.ctrl"][-1] == 3.0
+
+
+def test_session_ticks_are_timed_into_the_profile():
+    """``Exec.profile()`` times a session's ticks as it times ``run``'s:
+    every tick sleeps 2 ms, so neither the tick ms nor the real-time factor
+    may read as if the session's ticks took no time."""
+    ex = fresh()
+    step = ex._step
+
+    def slow(cols):
+        time.sleep(0.002)
+        return step(cols)
+
+    ex._step = slow
+    ex.lockstep_session(["v.x"], ["v.ctrl"], hold_ticks=3).tick()
+    ex.run(3)
+    assert ex.profiler.ticks == 6
+    profile = ex.profile()
+    assert profile["tick"] >= 2.0
+    assert profile["real_time_factor"] <= ex.sim_time_step / 0.002
+
+
+def test_session_commits_are_not_timed_as_ticks():
+    """A session's commits to the history lie outside its ticks' time, as
+    ``run``'s do: each commit here sleeps 0.1 s, the three ticks far less."""
+    ex = fresh()
+    commit = ex._commit
+
+    def slow(t, cols):
+        time.sleep(0.1)
+        commit(t, cols)
+
+    ex._commit = slow
+    session = ex.lockstep_session(["v.x"], ["v.ctrl"], hold_ticks=3)
+    assert session.emit
+    session.tick()
+    assert ex.profiler.ticks == 3 and len(ex.history_frame("v.x")["v.x"]) == 4
+    assert ex.profiler.kernel_s < 0.1
 
 
 @pytest.mark.parametrize("hold", [1, 4])
