@@ -738,6 +738,19 @@ def _trace_events(fn, attempts=TRACE_ATTEMPTS):
     return [], wall_ms
 
 
+def _runtime_calls(fn, names):
+    """How often one call of fn() called each CUDA runtime function of
+    ``names``, as torch.profiler records them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = [e.name() for e in prof.profiler.kineto_results.events()]
+    return tuple(found.count(n) for n in names)
+
+
 def _device_trace(fn, attempts=TRACE_ATTEMPTS):
     """(device ops, device busy ms, wall ms) of one call of fn() under
     torch.profiler (``_trace_events``).  Busy is the sum of the durations
@@ -1052,7 +1065,8 @@ def _nbody(el, interop):
     from elodin_tpu_torch.models import build_nbody
     from elodin_tpu_torch.models.nbody import G
     from elodin_tpu_torch.ops import pairwise as pw
-    from elodin_tpu_torch.system import TOTAL_FOLDS
+    from elodin_tpu_torch.models.nbody import _gravity
+    from elodin_tpu_torch.system import FOLD_SETUPS, TOTAL_FOLDS
 
     state = ("world_pos", "world_vel", "world_accel")
 
@@ -1133,11 +1147,13 @@ def _nbody(el, interop):
     kern = _nbody_exec(el, "f64", EDGE_BODIES, True)
     pw.LAUNCHES = 0
     TOTAL_FOLDS.update(dict.fromkeys(TOTAL_FOLDS, 0))
+    FOLD_SETUPS.update(dict.fromkeys(FOLD_SETUPS, 0))
+    _gravity.fold_setups.clear()
     edge_wall = _run_timed(edge, EDGE_TICKS)
-    edge_launches, folds = pw.LAUNCHES, dict(TOTAL_FOLDS)
+    edge_launches, folds, setups = pw.LAUNCHES, dict(TOTAL_FOLDS), dict(FOLD_SETUPS)
     kern_wall = _run_timed(kern, EDGE_TICKS)
     print(f"n-body edge-fold path (f64, {EDGE_BODIES} bodies, Exec.run({EDGE_TICKS})): "
-          f"{edge_launches} launches of pairwise_gravity, folds {folds}, "
+          f"{edge_launches} launches of pairwise_gravity, folds {folds}, set-ups {setups}, "
           f"{edge_wall:.4f} s, {EDGE_BODIES * EDGE_TICKS / edge_wall:.4g} entity-steps/s; "
           f"kernel path on the same world {kern_wall:.4f} s, "
           f"{EDGE_BODIES * EDGE_TICKS / kern_wall:.4g} entity-steps/s")
@@ -1145,6 +1161,9 @@ def _nbody(el, interop):
         raise AssertionError(f"the edge-fold path launched the kernel {edge_launches} times")
     if folds != {"dense": EDGE_TICKS, "sequential": 0, "probes": 0}:
         raise AssertionError(f"edge folds took {folds}, not the dense path every tick")
+    if setups != {"built": 1, "reused": EDGE_TICKS - 1}:
+        raise AssertionError(f"edge-fold set-ups {setups}, not one build and a reuse every "
+                             "later tick")
     if edge.tick() != EDGE_TICKS:
         raise AssertionError(f"edge-fold tick {edge.tick()} != {EDGE_TICKS}")
     _compare(f"n-body edge-fold vs kernel path, f64, {EDGE_BODIES} bodies x "
@@ -1154,6 +1173,12 @@ def _nbody(el, interop):
           f"run({EDGE_TRACE_TICKS})): {ops / EDGE_TRACE_TICKS:.1f} device ops/tick, "
           f"device busy {busy / EDGE_TRACE_TICKS:.4g} ms/tick, wall "
           f"{wall / EDGE_TRACE_TICKS:.4g} ms/tick, idle share {1 - busy / wall:.2%}")
+    calls = _runtime_calls(lambda: edge.run(EDGE_TRACE_TICKS),
+                           ("cudaStreamSynchronize", "cudaMemcpyAsync", "cudaLaunchKernel"))
+    print(f"runtime calls, n-body edge-fold path (run({EDGE_TRACE_TICKS}), history recorded "
+          "every tick): " + ", ".join(f"{name} {n / EDGE_TRACE_TICKS:.4g}" for name, n in zip(
+              ("cudaStreamSynchronize", "cudaMemcpyAsync", "cudaLaunchKernel"), calls))
+          + " a tick")
 
     # 10. the example's form of the fold (examples/n_body/main.py, no
     # additive hint): the probe runs once and rejects it (it drops the

@@ -39,12 +39,21 @@ from .tick_metrics import span
 # and how often the additive probe ran
 TOTAL_FOLDS = {"dense": 0, "sequential": 0, "probes": 0}
 
+# how often a TotalEdge edge_fold built its set-up (its ids and stand-in
+# flags on the device) and how often it took one its system kept
+# (``FnSystem.fold_setups``) since import, or since a caller reset them
+FOLD_SETUPS = {"built": 0, "reused": 0}
+
+# the set-ups a system keeps, one per query shape; the oldest goes first
+FOLD_SETUP_CAP = 8
+
 # right-hand entities per step of the dense TotalEdge fold
 DENSE_FOLD_CHUNK = 1024
 
-# spans (tick_metrics.span): a tick, the dense edge fold, the additive probe;
-# each FnSystem and LambdaSystem names its own "system.<name>"
-TICK, FOLD_DENSE, FOLD_PROBE = "tick", "fold.dense", "fold.probe"
+# spans (tick_metrics.span): a tick, the dense edge fold, the additive probe,
+# the fold's set-up; each FnSystem and LambdaSystem names its own
+# "system.<name>"
+TICK, FOLD_DENSE, FOLD_PROBE, FOLD_SETUP = "tick", "fold.dense", "fold.probe", "fold.setup"
 
 
 def from_array(cls, arr):
@@ -67,6 +76,59 @@ def _as_leaf(x, device) -> torch.Tensor:
     if isinstance(x, float):
         return torch.tensor(x, dtype=_config.default_float(), device=device)
     return torch.as_tensor(np.asarray(x), device=device)
+
+
+def _to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A copy of host tensor ``t`` on ``device``; to a card through pinned
+    memory without waiting for the copy, so the stream is not synchronised."""
+    if torch.device(device).type != "cuda":
+        return t.to(device, copy=True)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _passes_through(x, device) -> bool:
+    """True for an initial-value leaf that the fold takes as it is: a tensor
+    on ``device`` or another card already, or one that carries a gradient."""
+    return isinstance(x, torch.Tensor) and (
+        x.device.type != "cpu" or x.device == device or x.requires_grad)
+
+
+class _FoldSetup:
+    """What a ``TotalEdge`` fold derives from its entity ids alone, on the
+    device: the left entities that have an edge (``keep``: None when all
+    do), their ids (``lid``), the right ids (``rid``) and which left entity
+    is the first right one (``is_r0``); and the initial carry last staged
+    on the device with the host values it came from."""
+
+    def __init__(self, lids, rids, device):
+        # a left entity whose only right-hand entity is itself has no edge
+        keep = [i for i, f in enumerate(lids) if not (len(rids) == 1 and rids[0] == f)]
+        if not keep:
+            raise RuntimeError("edge_fold matched no edges")
+        self.from_ids = tuple(lids[i] for i in keep)
+        self.keep = None if len(keep) == len(lids) else _to_device(
+            torch.as_tensor(keep), device)
+        self.lid = _to_device(torch.as_tensor(self.from_ids, dtype=torch.int64), device)
+        self.rid = _to_device(torch.as_tensor(rids, dtype=torch.int64), device)
+        self.is_r0 = _to_device(torch.as_tensor([f == rids[0] for f in self.from_ids]),
+                                device)
+        self.init_key = self.init = None
+
+    def initial_carry(self, init_flat, device) -> list[torch.Tensor]:
+        """The initial value's leaves on ``device``.  A leaf built on the
+        host (a number, an array, a host tensor without a gradient) is kept
+        on the device by its dtype, shape and bytes, so a tick that passes
+        the values of the tick before copies nothing."""
+        hosts = [None if _passes_through(x, device) else _as_leaf(x, "cpu")
+                 for x in init_flat]
+        key = tuple(None if h is None else
+                    (h.dtype, tuple(h.shape), h.reshape(-1).view(torch.uint8).numpy().tobytes())
+                    for h in hosts)
+        if key != self.init_key:
+            self.init = [None if h is None else _to_device(h, device) for h in hosts]
+            self.init_key = key
+        return [_as_leaf(x, device) if h is None else s
+                for x, h, s in zip(init_flat, hosts, self.init)]
 
 
 def _np(x) -> np.ndarray:
@@ -272,6 +334,8 @@ class FnSystem(System):
         # the additive probe's verdicts for this system's TotalEdge folds,
         # kept across ticks as the JAX package keeps them for one trace
         self.fold_verdicts: dict = {}
+        # those folds' set-ups on the device, by query shape (_FoldSetup)
+        self.fold_setups: dict = {}
 
     def call(self, builder: SystemBuilder) -> None:
         with span(self._span):
@@ -280,6 +344,7 @@ class FnSystem(System):
             for a in args:
                 if isinstance(a, GraphQuery):
                     a.verdicts = self.fold_verdicts
+                    a.setups = self.fold_setups
             output = self.func(*args)
             if output is not None:
                 output.output(builder, [])
@@ -628,9 +693,10 @@ class GraphQuery:
         self.builder = builder
         self.edges = edges  # None for TotalEdge
         self.total = total
-        # probe verdicts shared across ticks (set by the calling FnSystem);
-        # None probes on every fold
+        # probe verdicts and fold set-ups shared across ticks (set by the
+        # calling FnSystem); None probes, and builds, on every fold
         self.verdicts: dict | None = None
+        self.setups: dict | None = None
 
     @staticmethod
     def component_ids(_new_tp) -> list[str]:
@@ -812,6 +878,28 @@ class GraphQuery:
                 verdict = window.comm.agree(verdict, "the additive probe's verdict")
             return verdict
 
+    def _setup(self, left_query: Query, rids: tuple, device) -> _FoldSetup:
+        """The fold's ``_FoldSetup``: the one the calling system keeps for
+        these left and right ids, this device and row window, or a new one
+        (kept, the oldest of ``FOLD_SETUP_CAP`` dropped).  A hit compares the
+        id sequences in C; a spawn or despawn changes them and builds anew."""
+        layout = left_query.layout
+        window = None if layout is None else (
+            left_query.builder.window.comm.index, tuple(layout[0]))
+        key = (tuple(left_query.entity_ids), rids, device, window)
+        setups = self.setups
+        setup = None if setups is None else setups.get(key)
+        if setup is not None:
+            FOLD_SETUPS["reused"] += 1
+            return setup
+        setup = _FoldSetup(key[0], rids, device)
+        FOLD_SETUPS["built"] += 1
+        if setups is not None:
+            if len(setups) >= FOLD_SETUP_CAP:
+                del setups[next(iter(setups))]
+            setups[key] = setup
+        return setup
+
     def _edge_fold_total(self, left_query: Query, right_query: Query,
                          return_type, init_value, fold_fn,
                          additive: bool | None = None) -> Query:
@@ -826,24 +914,18 @@ class GraphQuery:
         # right ones, in global order, so each left row sums the same chunks
         # in the same order as the unsharded fold
         right_query = right_query.whole()
-        lids = list(left_query.entity_ids)
-        rids = list(right_query.entity_ids)
-        # a left entity whose only right-hand entity is itself has no edge
-        keep = [i for i, f in enumerate(lids) if not (len(rids) == 1 and rids[0] == f)]
-        if not keep:
-            raise RuntimeError("edge_fold matched no edges")
-        from_ids = [lids[i] for i in keep]
-
+        rids = tuple(right_query.entity_ids)
         lbufs, rbufs = _batched(left_query), _batched(right_query)
         device = lbufs[0].device
-        if len(keep) != len(lids):
-            lbufs = [b[torch.as_tensor(keep, device=device)] for b in lbufs]
-        n_i, n_j = len(from_ids), len(rids)
-        lid = torch.as_tensor(from_ids, dtype=torch.int64, device=device)
-        rid = torch.as_tensor(rids, dtype=torch.int64, device=device)
-
         init_flat, init_spec = pytree.tree_flatten(init_value)
-        init = [_as_leaf(x, device) for x in init_flat]
+        with span(FOLD_SETUP):
+            setup = self._setup(left_query, rids, device)
+            init = setup.initial_carry(init_flat, device)
+        from_ids, lid, rid = setup.from_ids, setup.lid, setup.rid
+        if setup.keep is not None:
+            lbufs = [b[setup.keep] for b in lbufs]
+        n_i, n_j = len(from_ids), len(rids)
+
         if os.environ.get("ELODIN_EDGE_FOLD_DENSE", "1") == "0":
             additive = False  # the global kill switch wins over additive=True
         elif additive is None:
@@ -853,8 +935,7 @@ class GraphQuery:
         # stand-in right-hand values for the masked (self and padding)
         # pairs: a real other entity's, right entity 0 or the last one when
         # the left entity is entity 0, so fold_fn never sees a zero distance
-        is_r0 = torch.as_tensor([f == rids[0] for f in from_ids], device=device)
-        alt = [torch.where(_bcast_mask(is_r0, b.dim()), b[-1], b[0]) for b in rbufs]
+        alt = [torch.where(_bcast_mask(setup.is_r0, b.dim()), b[-1], b[0]) for b in rbufs]
 
         def fold_args(lvals, rvals):
             return left_query._args(lvals) + right_query._args(rvals)

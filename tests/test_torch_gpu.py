@@ -1079,3 +1079,52 @@ def test_fsw_mekf_lqr_on_the_card_matches_its_cpu(cuda):
     assert worst <= 1e-12, worst
     q_true = np.array([0.0, 0.0, np.sin(theta / 2), np.cos(theta / 2)])
     assert abs(float(np.dot(worlds["cuda"].att_est, q_true))) > 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["dense", "sequential"])
+def test_a_fold_tick_does_not_synchronise(cuda, path):
+    """After one warm-up tick, a tick of the n-body fold world's step (the
+    dense fold of ``models/nbody.py`` at 2048 bodies, two chunks; the
+    sequential fold of ``examples/n_body`` at 16) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: the fold's set-up is kept
+    on the card and nothing in the tick copies through pageable memory.
+    Both ticks match the CPU's (f64 ≤ 1e-12) and reuse the first's set-up."""
+    from elodin_tpu_torch import _config, interop
+    from elodin_tpu_torch.examples.n_body import main as n_body
+    from elodin_tpu_torch.models import nbody
+    from elodin_tpu_torch.system import FOLD_SETUPS, build_step
+
+    prev = _config._FLOAT_POLICY
+    _config.set_float_policy("f64")
+    try:
+        if path == "dense":
+            world, system = build_nbody(2048, seed=4), nbody.build_system(60.0, use_kernel=False)
+            nbody._gravity.fold_setups.clear()
+        else:
+            world, system = n_body.build_world(14, 3), n_body.build_system()
+            n_body.gravity.fold_setups.clear()
+        world.set_sim_time_step(60.0)
+        meta, cols = world.snapshot()
+        out = {}
+        for dev in ("cuda", "cpu"):
+            step = build_step(meta, system)
+            state = interop.columns_from_numpy(cols, meta, dev)
+            before = dict(FOLD_SETUPS)
+            state = step(state)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    state = step(state)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            else:
+                state = step(state)
+            assert {k: FOLD_SETUPS[k] - v for k, v in before.items()} == {"built": 1,
+                                                                         "reused": 1}
+            out[dev] = interop.columns_to_numpy(state, meta)
+    finally:
+        _config.set_float_policy(prev)
+    for name in ("world_pos", "world_vel", "world_accel", "force"):
+        assert rel_err(out["cuda"][name], out["cpu"][name]) <= 1e-12, name

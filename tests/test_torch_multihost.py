@@ -153,6 +153,16 @@ def test_ep_nbody_exec_matches_one_process(ep_ranks, path):
     np.testing.assert_array_equal(data[0][f"{path}/world_pos"], data[1][f"{path}/world_pos"])
 
 
+def test_ep_fold_reuses_its_setup_per_rank(ep_ranks):
+    """The dense fold through ``Exec`` on the mesh builds its set-up (the
+    rank's left ids against every rank's right ones) once on each rank and
+    reuses it on every later tick; the kernel path folds nothing."""
+    meta, _ = ep_ranks
+    for m in meta:
+        assert m["setups"] == {"kernel": {"built": 0, "reused": 0},
+                               "dense": {"built": 1, "reused": ranks.NBODY_TICKS - 1}}
+
+
 def test_ep_runs_over_gloo_on_the_host(ep_ranks):
     meta, _ = ep_ranks
     assert {m["transport"] for m in meta} == {"gloo on cpu"}

@@ -112,8 +112,10 @@ def test_exec_spans(buffer):
         # the tick's children beside the tick counter
         inside = [s.name for s in spans if s.parent == t.index]
         assert sorted(inside) == sorted(SYSTEMS)
-    folds = [s for s in spans if s.name == "fold.dense"]
-    assert len(folds) == 5 and all(by_index[f.parent].name == "system._gravity" for f in folds)
+    for name in ("fold.setup", "fold.dense"):
+        folds = [s for s in spans if s.name == name]
+        assert len(folds) == 5 and all(by_index[f.parent].name == "system._gravity"
+                                       for f in folds)
     assert not [s for s in spans if s.name == "fold.probe"]  # the model asserts additivity
     for s in spans:
         assert 0 <= tick_metrics.self_ns(s) <= s.end_ns - s.start_ns
@@ -197,7 +199,7 @@ def test_spans_share_the_profilers_clock(buffer):
         finally:
             gc.enable()
         ours = [s for s in tick_metrics.spans() if s.name != "warm-up"]
-        assert len(ours) == 3 + 1 + 3 * 6 + 2  # rollout; exec.run, 3 ticks, 2 syncs
+        assert len(ours) == 3 + 1 + 3 * 7 + 2  # rollout; exec.run, 3 ticks, 2 syncs
         slack.append(_edge_slack(prof, ours))
         if slack[-1] <= CLOCK_SLACK_NS:
             break

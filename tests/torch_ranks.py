@@ -52,7 +52,7 @@ def ep_world(out_dir: str) -> dict:
     from elodin_tpu_torch.models import build_batched_sixdof, build_nbody, build_nbody_system
     from elodin_tpu_torch.ops import pairwise
     from elodin_tpu_torch.parallel import distributed, make_mesh, sharded_step
-    from elodin_tpu_torch.system import TOTAL_FOLDS, build_step
+    from elodin_tpu_torch.system import FOLD_SETUPS, TOTAL_FOLDS, build_step
 
     _config.set_float_policy("f64")
     mesh = make_mesh(ep=len(distributed.process().global_devices))
@@ -73,18 +73,21 @@ def ep_world(out_dir: str) -> dict:
     arrays.update(_shard_arrays("fold", fn(placed)))
     folds = {k: TOTAL_FOLDS[k] - v for k, v in folds.items()}
 
-    launches, before = {}, dict(distributed.COLLECTIVES)
+    launches, setups, before = {}, {}, dict(distributed.COLLECTIVES)
     for name, use_kernel in (("kernel", True), ("dense", False)):
         exec_ = build_nbody(NBODY_BODIES, seed=2).build(
             build_nbody_system(60.0, use_kernel=use_kernel), simulation_rate=1 / 60.0,
             device=mesh)
         pairwise.LAUNCHES = 0
+        built = dict(FOLD_SETUPS)
         exec_.run(NBODY_TICKS)
         launches[name] = pairwise.LAUNCHES
+        setups[name] = {k: FOLD_SETUPS[k] - v for k, v in built.items()}
         for k in ("world_pos", "world_vel", "force"):
             arrays[f"{name}/{k}"] = exec_.column_array(k)
     np.savez(os.path.join(out_dir, f"ep_rank{_rank()}.npz"), **arrays)
     return {"rank": _rank(), "mesh": mesh.shape, "folds": folds, "launches": launches,
+            "setups": setups,
             "transport": mesh.line_comm("ep", mesh.local_positions()[0]).transport,
             "collectives": {k: distributed.COLLECTIVES[k] - v for k, v in before.items()}}
 
