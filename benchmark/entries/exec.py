@@ -28,6 +28,11 @@ import torch
 
 from benchmark.harness import gaps
 
+# the cell's keys the driver reads (``system_args`` may be left out) and
+# the functions of the configuration's reference it calls
+KEYS = ("bodies", "ticks_per_call", "system", "telemetry_rate_hz", "telemetry_stride_ticks",
+        "record_history")
+REFERENCE = ("initial_columns", "rollout")
 STATE = ("world_pos", "world_vel")
 POLICY = {"float64": "f64", "float32": "f32"}
 

@@ -18,6 +18,11 @@ import torch
 
 from benchmark.harness import gaps
 
+# the cell's keys the driver reads and the functions of the
+# configuration's reference it calls
+KEYS = ("bodies", "ticks_per_call", "dispersions")
+REFERENCE = ("initial_columns", "rollout")
+
 
 class Driver:
     def __init__(self, cell, seed: int, device: str):

@@ -1,13 +1,17 @@
 """One run of one cell: set-up, the measured window, the reading of the
 trace, the comparison that decides ``correct``, and the result line.
 
-The window is a closed loop with one caller: each call is issued, then
-waited for (``torch.cuda.synchronize``), then the next is issued, until
-``seconds`` have passed; the call that is running then ends the window.
-Each call is timed on the card by a CUDA event before and after it.  The
-calls to compare are drawn from the seed, as points in the window: a call
-is compared when it is the first to start after its point; the state it is
-judged on is copied outside its timing.
+The window is a loop with one caller.  Each call is issued, then the host
+waits for the end of the call ``ahead_calls`` before it (the cell's key):
+0, the default, is a closed loop, each call waited for
+(``torch.cuda.synchronize``) before the next is issued; more keeps the
+card fed while the host stands still.  Once ``seconds`` have passed no
+call is sent, every call sent is waited for, and the clock is read after
+that wait: all of them count, over all of that time.  Each call is timed
+on the card by a CUDA event before and after it.  The calls to compare
+are drawn from the seed, as points in the window: a call is compared when
+it is the first to start after its point; the state it is judged on is
+copied outside its timing.
 """
 
 from __future__ import annotations
@@ -50,11 +54,13 @@ class Window:
 
 
 class _CallClock:
-    """Each call's ms: CUDA events on a card, the host's clock elsewhere."""
+    """Each call's ms: CUDA events on a card, the host's clock elsewhere.
+    On a card, each call's end is waited for ``ahead`` calls later."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, ahead: int = 0):
         self.cuda = device.type == "cuda"
         self.device = device
+        self.ahead = ahead
         self.marks = []
 
     def start(self):
@@ -68,17 +74,25 @@ class _CallClock:
         if self.cuda:
             last = torch.cuda.Event(enable_timing=True)
             last.record()
-            torch.cuda.synchronize(self.device)
             self.marks.append((self._first, last))
+            if not self.ahead:
+                torch.cuda.synchronize(self.device)
+            elif len(self.marks) > self.ahead:
+                self.marks[-1 - self.ahead][1].synchronize()
         else:
             self.marks.append((time.perf_counter() - self._first) * 1e3)
+
+    def drain(self):
+        """Wait for every call sent."""
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
 
     def ms(self) -> list:
         return [a.elapsed_time(b) for a, b in self.marks] if self.cuda else self.marks
 
 
-def _window(driver, seconds: float, points: list, traced: bool, device):
-    clock, kept, calls, due = _CallClock(device), [], 0, list(points)
+def _window(driver, seconds: float, points: list, traced: bool, device, ahead: int):
+    clock, kept, calls, due = _CallClock(device, ahead), [], 0, list(points)
     with tr.span(tr.WINDOW, traced):
         t0 = time.perf_counter()
         while (elapsed := time.perf_counter() - t0) < seconds:
@@ -97,7 +111,12 @@ def _window(driver, seconds: float, points: list, traced: bool, device):
                 with tr.span(tr.KEEP, traced):
                     kept.append(driver.keep(calls, before, out))
             calls += 1
+        t_drain = time.perf_counter()
+        with tr.span(tr.SYNC, traced):
+            clock.drain()
         wall_s = time.perf_counter() - t0
+    print(f"window: {calls} calls, {ahead} ahead; the last wait "
+          f"{t0 + wall_s - t_drain:.6f} s", file=sys.stderr)
     return calls, clock.ms(), wall_s, kept
 
 
@@ -151,14 +170,16 @@ def run(name: str, seed: int, seconds: float, traced: bool, device: str = "cuda"
         last = at
     print(f"{name}: set-up {setup_s:.3f} s: " + ", ".join(steps), file=sys.stderr)
 
-    ops, spans = [], []
+    ops, spans, ahead = [], [], t.get("ahead_calls", 0)
     for attempt in range(1, (TRACE_ATTEMPTS if traced else 1) + 1):
         if traced:
             with tr.profiler() as prof:
-                calls, call_ms, wall_s, kept_now = _window(driver, seconds, points, True, dev)
+                calls, call_ms, wall_s, kept_now = _window(driver, seconds, points, True, dev,
+                                                           ahead)
             ops, spans = tr.read(prof)
         else:
-            calls, call_ms, wall_s, kept_now = _window(driver, seconds, points, False, dev)
+            calls, call_ms, wall_s, kept_now = _window(driver, seconds, points, False, dev,
+                                                       ahead)
         kept += kept_now
         if ops or not traced:
             break

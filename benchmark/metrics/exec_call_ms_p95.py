@@ -1,4 +1,4 @@
-"""``exec_call_ms_p95``: ``call_ms_p95`` read in the traced window, for a
+"""``exec_call_ms_p95``: a call's tail read in the traced window, for a
 cell whose call's tail swings with the host's load too widely to hold a
 bound end to end: the 95th percentile (linear between order statistics)
 of every traced call's time by its CUDA events, the profiler's own cost on

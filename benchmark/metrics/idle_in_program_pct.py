@@ -1,8 +1,10 @@
 """``idle_in_program_pct``: of the traced window's device-idle time (the
 gaps between the union of the device ops), the share, in %, in which the
 host's innermost program span (``tick_metrics.span``, on the profiler's
-clock, started inside the window) was one other than ``exec.sync``: idle
-that the program's own host work left, not its waiting for the card.
+clock, started inside the window) was not one of the program's waits for
+the card: idle that the program's own host work left.  A wait is a span
+named ``<layer>.sync`` (``exec.sync``, ``Exec.run``'s), where the layer is
+not ``system``: ``system.<name>`` is a user's system, whatever its name.
 Nothing where the program records no span, or the card never idled.
 
 Standard error shows the window's idle ms by innermost program span, and
@@ -13,8 +15,13 @@ import sys
 
 from benchmark.harness.program_spans import idle_gaps, in_window
 
-WAITING = "exec.sync"
 OUTSIDE = "outside the program"
+
+
+def waiting(name: str) -> bool:
+    """Whether the span ``name`` is a wait for the card: ``<layer>.sync``,
+    the layer not ``system``."""
+    return name.endswith(".sync") and name.split(".", 1)[0] != "system"
 
 
 def innermost(spans) -> list:
@@ -67,4 +74,5 @@ def read(trace, spans=None):
     print(f"idle_in_program_pct: {idle / 1e6:.6g} ms idle in the window: "
           + ", ".join(f"{name} {ns / 1e6:.6g} ms" for name, ns in
                       sorted(rows.items(), key=lambda kv: -kv[1])), file=sys.stderr)
-    return 100.0 * (idle - rows.get(OUTSIDE, 0) - rows.get(WAITING, 0)) / idle
+    waits = sum(ns for name, ns in rows.items() if waiting(name))
+    return 100.0 * (idle - rows.get(OUTSIDE, 0) - waits) / idle

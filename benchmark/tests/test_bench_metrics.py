@@ -77,7 +77,6 @@ def test_end_to_end_metrics():
     w = Window(calls=4, call_ms=[1.0, 2.0, 3.0, 4.0], wall_s=2.0, entity_steps=4000,
                setup_s=12.5)
     assert read("entity_steps_per_s", w) == 2000.0
-    assert read("call_ms_p95", w) == pytest.approx(3.85)
     assert read("setup_s", w) == 12.5
 
 
@@ -85,6 +84,14 @@ def test_exec_call_ms_p95_reads_the_traced_calls():
     t = _trace([("add", 1, 0.5)], [(0, 20)])
     t.call_ms = [1.0, 2.0, 3.0, 4.0]
     assert read("exec_call_ms_p95", t) == pytest.approx(3.85)
+
+
+def test_rollout_call_ms_p95_reads_the_traced_calls():
+    t = _trace([("add", 1, 0.5)], [(0, 20)])
+    t.call_ms = [1.0, 2.0, 3.0, 4.0]
+    assert read("rollout_call_ms_p95", t) == pytest.approx(3.85)
+    t.call_ms = []
+    assert read("rollout_call_ms_p95", t) is None
 
 
 def test_frozen_counts_follow_their_algebra():

@@ -22,13 +22,16 @@ def test_top_level_names_compared_whole(names, found):
 
 
 def test_the_harness_and_the_port_load_no_jax():
-    """What a run imports (the harness, both entry drivers, the port's
-    models and kernels' wrappers) leaves no forbidden module behind."""
-    code = ("import sys; sys.path.insert(0, sys.argv[1])\n"
+    """What a run imports (the harness, the entry and the reference of every
+    cell in BENCHMARK.json, the module its ``system`` names, the port and
+    its kernels' wrappers) leaves no forbidden module behind."""
+    code = ("import importlib, sys; sys.path.insert(0, sys.argv[1])\n"
             "from benchmark.harness import runner, spec, nojax\n"
-            "for name in ('leo6dof.rollout-8k', 'nbody.fold-8k'):\n"
-            "    cell = spec.cell(name); cell.entry(); cell.reference()\n"
-            "import elodin_tpu_torch, elodin_tpu_torch.models.nbody, elodin_tpu_torch.ops.sixdof_kernel\n"
+            "for w in spec.load_benchmark()['workloads']:\n"
+            "    cell = spec.cell(w['name']); cell.entry(); cell.reference()\n"
+            "    if 'system' in cell.traffic:\n"
+            "        importlib.import_module(cell.traffic['system'].split(':')[0])\n"
+            "import elodin_tpu_torch, elodin_tpu_torch.ops.sixdof_kernel\n"
             "print(nojax.forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)], capture_output=True,
                          text=True, timeout=300)

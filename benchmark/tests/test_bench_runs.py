@@ -13,10 +13,21 @@ from benchmark.harness import runner, spec
 from benchmark.harness.spec import ROOT
 
 CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
-# each cell shrunk to what a test run holds; the rest of the traffic as it is
-SMALL = {"leo6dof.rollout-8k": {"bodies": 48, "ticks_per_call": 40},
-         "nbody.fold-8k": {"bodies": 64}}
-STATE = ("world_pos", "world_vel")
+
+
+def small(name):
+    """The cell's overrides for a test run (its ``cpu_test``): each cell
+    shrunk to what a test run holds, the rest of its traffic as it is."""
+    return spec.cell(name).traffic["cpu_test"]
+
+
+def fault_file(name):
+    """``tests/faults/<entry>.py``, the faults of the cell's entry."""
+    return spec.BENCH_DIR / "tests" / "faults" / f"{spec.cell(name).traffic['entry']}.py"
+
+
+def faults(name):
+    return spec.load_module(fault_file(name))
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -42,82 +53,34 @@ def test_alone_in_a_directory_it_fails(tmp_path):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_a_sound_run_is_correct(name):
-    r = runner.run(name, 2147483647 + 12, 0.4, False, device="cpu", overrides=SMALL[name])
+    r = runner.run(name, 2147483647 + 12, 0.4, False, device="cpu", overrides=small(name))
     assert r["correct"] and r["failed"] == 0, r["compared"]
     assert list(r)[-1] == "compared" and r["attempted"] >= 1
-
-
-def _rollout_fault(kind):
-    from elodin_tpu_torch.ops import sixdof_kernel
-
-    real = sixdof_kernel.sixdof_rollout
-
-    def broken(pos, vel, inertia, dt, ticks, **kw):
-        if kind == "unchanged":  # the state returned as it came
-            return pos.clone(), vel.clone()
-        p, v = real(pos, vel, inertia, dt, ticks, **kw)
-        if kind == "half":  # half of the bodies left out
-            n = pos.shape[0] // 2
-            p[n:], v[n:] = pos[n:], vel[n:]
-        else:  # one answer altered where it is produced
-            p[0, 4] *= 1 + 1e-6
-        return p, v
-
-    return sixdof_kernel, "sixdof_rollout", broken
-
-
-def _exec_fault(kind):
-    from elodin_tpu_torch import execimpl
-
-    real = execimpl.Exec.run
-
-    def broken(self, ticks=1, **kw):
-        if kind == "unchanged":  # the state left as it was
-            return None
-        before = dict(self.cols)
-        real(self, ticks, **kw)
-        if kind == "half":  # half of the bodies left out
-            n = before["world_pos"].shape[0] // 2
-            for c in STATE:
-                self.cols[c] = torch.cat([self.cols[c][:n], before[c][n:]])
-        else:  # one answer altered where it is produced
-            vel = self.cols["world_vel"].clone()
-            vel[1, 3] *= 1 + 1e-6
-            self.cols["world_vel"] = vel
-
-    return execimpl.Exec, "run", broken
 
 
 @pytest.mark.parametrize("kind", ["unchanged", "half", "altered"])
 @pytest.mark.parametrize("name", CELLS)
 def test_a_broken_timed_path_is_not_correct(name, kind, monkeypatch):
-    entry = spec.cell(name).traffic["entry"]
-    monkeypatch.setattr(*(_rollout_fault if entry == "rollout" else _exec_fault)(kind))
-    r = runner.run(name, 2147483647 + 21, 0.4, False, device="cpu", overrides=SMALL[name])
+    monkeypatch.setattr(*faults(name).broken(kind))
+    r = runner.run(name, 2147483647 + 21, 0.4, False, device="cpu", overrides=small(name))
     assert not r["correct"] and r["failed"] >= 1, r["compared"]
 
 
-@pytest.mark.parametrize("name", [c for c in CELLS if spec.cell(c).traffic["entry"] == "exec"])
+# a cell without its fault file fails test_bench_spec.py::test_cell_files_parse
+@pytest.mark.parametrize("name", [c for c in CELLS
+                                  if fault_file(c).is_file() and hasattr(faults(c), "left_out")])
 def test_a_call_left_out_between_the_compared_ones_is_not_correct(name, monkeypatch):
-    """The window's first call, never compared (the first point lies 5 % into
-    the window), leaves the state as it was: the calls compared from the
-    program's own state read sound, and the last state against the
-    reference's every tick from the start does not."""
-    from elodin_tpu_torch import execimpl
-
-    real, runs = execimpl.Exec.run, []
-
-    def broken(self, ticks=1, **kw):
-        runs.append(ticks)
-        if len(runs) == 3:  # set-up's two calls, then the window's first
-            return None
-        return real(self, ticks, **kw)
-
-    monkeypatch.setattr(execimpl.Exec, "run", broken)
-    r = runner.run(name, 2147483647 + 45, 0.4, False, device="cpu", overrides=SMALL[name])
-    compared = r["compared"]
+    """A cell that continues one state across calls: the window's first
+    call, never compared, leaves the state as it was.  The calls compared
+    from the program's own state read sound, and the number the entry's
+    fault file names (``LEFT_OUT_SEEN_BY``: the last state against the
+    reference's every tick from the start) does not."""
+    fault = faults(name)
+    monkeypatch.setattr(*fault.left_out())
+    r = runner.run(name, 2147483647 + 45, 0.4, False, device="cpu", overrides=small(name))
+    compared, seen_by = r["compared"], fault.LEFT_OUT_SEEN_BY
     assert compared["state_gap"]["value"] <= compared["state_gap"]["limit"], compared
-    assert compared["late_gap"]["value"] > compared["late_gap"]["limit"], compared
+    assert compared[seen_by]["value"] > compared[seen_by]["limit"], compared
     assert not r["correct"] and r["failed"] == 1
 
 
@@ -125,6 +88,6 @@ def test_a_call_left_out_between_the_compared_ones_is_not_correct(name, monkeypa
 def test_the_control_is_not_correct(name):
     """The reference computed one precision lower, judged in the program's
     place, fails the cell's limit (at a size a test run holds)."""
-    r = runner.run(name, 2147483647 + 33, 0.4, False, device="cpu", overrides=SMALL[name],
+    r = runner.run(name, 2147483647 + 33, 0.4, False, device="cpu", overrides=small(name),
                    control=True)
     assert not r["correct"], r["compared"]

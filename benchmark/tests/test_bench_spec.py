@@ -12,6 +12,8 @@ BENCH = spec.load_benchmark()
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
 CELLS = [w["name"] for w in BENCH["workloads"]]
+RUNNER_KEYS = ("entry", "bodies", "ticks_per_call", "compared_calls", "limits", "why", "chips",
+               "cpu_test")
 
 
 def test_top_level_keys_and_paths():
@@ -50,19 +52,41 @@ def test_config_files_parse(name):
     assert data["name"] == name and data["dtype"] in ("float64", "float32")
     assert conf["reduced"] == [] or all(NAME.fullmatch(k) for k in conf["reduced"])
     assert (spec.BENCH_DIR / "configs" / f"{name}.py").is_file()
-    assert hasattr(spec.load_module(spec.BENCH_DIR / "configs" / f"{name}.py"), "rollout")
+
+
+def test_four_chips_only_for_a_quarter_of_the_cells():
+    """A cell asks for 1 chip or 4; at most a quarter of the cells, rounded
+    down, ask for 4, and one always may."""
+    chips = [w["chips"] for w in BENCH["workloads"]]
+    assert set(chips) <= {1, 4}
+    assert chips.count(4) <= max(1, len(chips) // 4)
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_files_parse(name):
     cell = spec.cell(name)
     t = cell.traffic
-    assert cell.chips == t["chips"] == 1
-    for key in ("entry", "bodies", "ticks_per_call", "record_history", "compared_calls",
-                "limits", "why", "telemetry_stride_ticks"):
+    # the runner's own keys; cpu_test holds the overrides a CPU test run uses
+    for key in RUNNER_KEYS:
         assert key in t, key
+    assert cell.chips == t["chips"] and t["chips"] in (1, 4)
     assert t["why"] == {w["name"]: w for w in BENCH["workloads"]}[name]["why"]
-    assert hasattr(cell.entry(), "Driver")
+    assert isinstance(t["cpu_test"], dict)
+    # calls sent ahead of the host's wait; 0, a closed loop, where it is left out
+    ahead = t.get("ahead_calls", 0)
+    assert isinstance(ahead, int) and ahead >= 0
+    entry = cell.entry()
+    assert hasattr(entry, "Driver")
+    for key in entry.KEYS:  # what the cell's entry reads
+        assert key in t, f"entries/{t['entry']}.py reads {key!r}, which the cell lacks"
+    reference = cell.reference()
+    for function in entry.REFERENCE:
+        assert callable(getattr(reference, function, None)), \
+            f"configs/{cell.config_name}.py has no {function}, which entries/{t['entry']}.py calls"
+    faults = spec.BENCH_DIR / "tests" / "faults" / f"{t['entry']}.py"
+    assert faults.is_file(), f"no {faults.relative_to(spec.BENCH_DIR)}: the faults of entry " \
+        f"{t['entry']!r}, which the CPU tests plant under its timed path"
+    assert callable(spec.load_module(faults).broken)
     assert set(t["limits"]) >= {"state_gap"}
     # every cell reports setup_s, another end-to-end metric and a per-layer one
     e2e = {m["name"] for m in cell.end_to_end}
